@@ -1,0 +1,21 @@
+"""fusion_sim_torch — the PyTorch/CUDA port of ``fusion_sim_tpu``.
+
+The JAX package stays the reference; this package keeps its module layout,
+file names and public signatures so each function has an obvious
+counterpart.  Plain tensor code is PyTorch; every Pallas TPU kernel on a
+ported path becomes a hand-written Hopper kernel under ``csrc/`` (built
+with ``nvcc`` at first use and bound with ``ctypes``), with a plain PyTorch
+version of the same function beside it.
+
+Ported so far (the sorted 2D electrostatic PIC main path):
+
+* ``ops``    — CIC interpolation, spectral Poisson solve, the tile-sorted
+  layout, and the fused gather + kick + drift + deposit substep.
+* ``models`` — ``electrostatic``: ``ElectrostaticPIC`` and
+  ``SortedElectrostaticPIC(backend='pallas')``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``_device.resolve_device``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,224 @@
+"""Tile-sorted particle layout, 2D (port of the 2D part of
+``fusion_sim_tpu/ops/sorted_deposit.py``).
+
+Particles live sorted by grid tile, each tile's segment padded with dead
+filler rows to a multiple of ``tiling.block``, so every block of
+``tiling.block`` rows lies in one tile and its work touches only that
+tile's window: the tile plus ``margin`` cells on every side (plus the CIC
+node).  The fused substep (ops/fused_pic.py) depends on that guarantee.
+
+The reference deposits with one-hot digit matmuls per block and folds
+tile windows with dense rolls (TPU forms).  Here ``deposit_sorted_2d``
+keeps the contract (same window criterion, same spill mask) and deposits
+the in-window rows straight onto the grid, which is the same sum.
+``fold_tile_windows``/``extract_tile_windows`` keep their dense-roll form.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .interp import cic_deposit_packed
+
+_NOT_YET = ("is not ported yet (ROADMAP.md Queue A: item 5, repair/eager "
+            "for ES, brings reserve/spread; item 9, 3D, brings Tiling3D)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Tiling2D:
+    """Static tile geometry: tile_r x tile_z cells, P particles per block,
+    margin cells of drift tolerance on every side."""
+
+    tile_r: int = 32
+    tile_z: int = 32
+    block: int = 1024
+    margin: int = 4
+    # the reference's one-hot matmul element type; the port computes in
+    # f32 whatever it says (ops/precision.py)
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        # the window [-margin, tile + margin + 1) must stay within
+        # [-tile, 2*tile): windows overhang at most one neighbour per side
+        if self.margin + 1 > min(self.tile_r, self.tile_z):
+            raise ValueError(
+                f"margin {self.margin} needs margin + 1 <= tile "
+                f"({self.tile_r}, {self.tile_z}) — windows may overhang at "
+                f"most one neighboring tile per side")
+
+    def n_tiles(self, shape: tuple[int, int]) -> tuple[int, int]:
+        nr, nz = shape
+        if nr % self.tile_r or nz % self.tile_z:
+            raise ValueError(f"grid {shape} not divisible by tile "
+                             f"({self.tile_r}, {self.tile_z})")
+        return nr // self.tile_r, nz // self.tile_z
+
+    def window(self) -> tuple[int, int]:
+        """(wr, wz): cells of a tile window, margins and CIC node included."""
+        return (self.tile_r + 2 * self.margin + 1,
+                self.tile_z + 2 * self.margin + 1)
+
+
+def tile_ids(position: torch.Tensor, shape: tuple[int, int],
+             tiling: Tiling2D) -> torch.Tensor:
+    """Flat tile id per particle (periodic grid units), int64."""
+    ntr, ntz = tiling.n_tiles(shape)
+    base = torch.floor(position).to(torch.int64)
+    tr = torch.clamp(torch.div(base[:, 0], tiling.tile_r,
+                               rounding_mode="floor"), 0, ntr - 1)
+    tz = torch.clamp(torch.div(base[:, 1], tiling.tile_z,
+                               rounding_mode="floor"), 0, ntz - 1)
+    return tr * ntz + tz
+
+
+def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
+                        tiling, *payloads: torch.Tensor,
+                        valid: torch.Tensor | None = None,
+                        reserve: bool = False,
+                        spread: bool = False,
+                        derive_valid: bool = False):
+    """Sort particles by tile AND pad every tile's segment to a multiple of
+    ``tiling.block`` with dead filler rows (position 0, payload 0).
+
+    ``valid`` (optional, (N,) bool): invalid rows sort into the trailing
+    dead region with ``tile_id = n_tiles``.  Returns ``(tile_id, position,
+    *payloads, n_valid)`` of fixed length ``N + n_tiles*block``; with
+    ``derive_valid`` the post-sort validity mask comes before ``n_valid``.
+    ``tile_id`` is int32, like the reference's.
+
+    The sort is a stable ``torch.sort`` of the (tile, realness) key, then
+    one gather per column; the reference's sort promises no order inside a
+    tile, so the two agree on ``tile_id``/``valid`` and on each tile
+    segment as a set of rows.
+    """
+    if len(shape) != 2:
+        raise NotImplementedError("3D layout " + _NOT_YET)
+    if reserve or spread:
+        raise NotImplementedError("reserve/spread " + _NOT_YET)
+    n_tiles = math.prod(tiling.n_tiles(shape))
+    p_blk = tiling.block
+    n = position.shape[0]
+    if n % p_blk:
+        raise ValueError(f"N={n} must be a multiple of block={p_blk} "
+                         "(append dead rows first)")
+    dev = position.device
+    total_pad = n_tiles * p_blk
+
+    tid = tile_ids(position, shape, tiling)
+    if valid is not None:
+        tid = torch.where(valid, tid, n_tiles)
+    counts = torch.bincount(tid, minlength=n_tiles + 1)[:n_tiles]
+    pads = torch.remainder(-counts, p_blk)
+    cum_pads = torch.cumsum(pads, 0)
+    # filler j gets the tile whose cumulative pad range contains j; the
+    # surplus beyond cum_pads[-1] sorts to the global end (tile = n_tiles)
+    j = torch.arange(total_pad, device=dev)
+    filler_tile = torch.searchsorted(cum_pads, j, right=True)
+    filler_tile = torch.where(j < cum_pads[-1], filler_tile, n_tiles)
+
+    # fillers after the real rows of their tile: key = 2*tile + is_filler
+    keys = torch.cat([tid * 2, filler_tile * 2 + 1])
+    keys_s, order = torch.sort(keys, stable=True)
+    real = order < n
+    src = torch.where(real, order, 0)
+
+    def take(col):
+        return torch.where(real.reshape((-1,) + (1,) * (col.dim() - 1)),
+                           col[src], torch.zeros((), dtype=col.dtype,
+                                                 device=dev))
+
+    out = [torch.div(keys_s, 2, rounding_mode="floor").to(torch.int32),
+           take(position)]
+    out += [take(p) for p in payloads]
+    n_eff = n if valid is None else valid.sum()
+    n_valid = n_eff + cum_pads[-1]
+    if derive_valid:
+        # real rows carry even keys; invalid real rows were re-keyed to the
+        # trailing tile (key = 2*n_tiles); fillers carry odd keys
+        out.append((keys_s % 2 == 0) & (keys_s < 2 * n_tiles))
+    return (*out, n_valid)
+
+
+def window_origins(tile_id: torch.Tensor, shape: tuple[int, int],
+                   tiling: Tiling2D) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block window origins (tile_r*i - margin, tile_z*j - margin) of
+    the padded layout, int64 (nb,); the sentinel tile maps past the end."""
+    _, ntz = tiling.n_tiles(shape)
+    blk_tile = tile_id[::tiling.block].to(torch.int64)
+    otr = torch.div(blk_tile, ntz, rounding_mode="floor") * tiling.tile_r
+    otz = torch.remainder(blk_tile, ntz) * tiling.tile_z
+    return otr - tiling.margin, otz - tiling.margin
+
+
+def deposit_sorted_2d(position: torch.Tensor, weights: torch.Tensor,
+                      tile_id: torch.Tensor, shape: tuple[int, int],
+                      tiling: Tiling2D
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CIC deposit of tile-sorted particles; returns ``(grid, spill_count,
+    spill_mask)``.
+
+    Rows whose base cell lies outside their block's window (drifted past
+    ``margin`` since the sort) deposit nothing and, if they carry weight,
+    count as spill — the reference's contract."""
+    nr, nz = shape
+    wr, wz = tiling.window()
+    n = position.shape[0]
+    if n % tiling.block:
+        raise ValueError(f"N={n} not a multiple of block={tiling.block}")
+    base = torch.floor(position).to(torch.int64)
+    otr, otz = window_origins(tile_id, shape, tiling)
+    dr = torch.remainder(base[:, 0] - otr.repeat_interleave(tiling.block), nr)
+    dz = torch.remainder(base[:, 1] - otz.repeat_interleave(tiling.block), nz)
+    in_win = (dr < wr - 1) & (dz < wz - 1)
+    grid = cic_deposit_packed(position, torch.where(in_win, weights, 0.0),
+                              shape)
+    spill_mask = (~in_win) & (weights != 0)
+    return grid, spill_mask.sum(), spill_mask
+
+
+def fold_tile_windows(tw: torch.Tensor, shape: tuple[int, int],
+                      tiling: Tiling2D, wr: int, wz: int) -> torch.Tensor:
+    """Fold per-TILE windows (ntr*ntz, wr, wz[, C]), anchored at
+    (tile_r*i - margin, tile_z*j - margin), onto the periodic grid."""
+    nr, nz = shape
+    ntr, ntz = tiling.n_tiles(shape)
+    tr_t, tz_t, m = tiling.tile_r, tiling.tile_z, tiling.margin
+    channels = tuple(tw.shape[3:])
+    tw = tw.reshape(ntr, ntz, wr, wz, *channels)
+    full = torch.zeros((ntr, ntz, 3 * tr_t, 3 * tz_t, *channels),
+                       dtype=torch.float32, device=tw.device)
+    full[:, :, tr_t - m:tr_t - m + wr, tz_t - m:tz_t - m + wz] = tw
+    g = torch.zeros((nr, nz, *channels), dtype=torch.float32,
+                    device=tw.device)
+    perm = (0, 2, 1, 3) + tuple(range(4, 4 + len(channels)))
+    for si in range(3):
+        for sj in range(3):
+            part = full[:, :, si * tr_t:(si + 1) * tr_t,
+                        sj * tz_t:(sj + 1) * tz_t]
+            part = torch.roll(part, (si - 1, sj - 1), (0, 1))
+            g = g + part.permute(perm).reshape(nr, nz, *channels)
+    return g
+
+
+def extract_tile_windows(grid: torch.Tensor, shape: tuple[int, int],
+                         tiling: Tiling2D, wr: int, wz: int) -> torch.Tensor:
+    """Per-tile periodic windows of ``grid`` (nr, nz[, C]) — returns
+    (ntr, ntz, wr, wz[, C]) with window [i, j] anchored at
+    (i*tile_r - margin, j*tile_z - margin), wrapping periodically."""
+    ntr, ntz = tiling.n_tiles(shape)
+    tr_t, tz_t, m = tiling.tile_r, tiling.tile_z, tiling.margin
+    channels = tuple(grid.shape[2:])
+    g = grid.reshape(ntr, tr_t, ntz, tz_t, *channels).movedim(2, 1)
+    rows = torch.cat([
+        torch.roll(g, 1, 0)[:, :, tr_t - m:],
+        g,
+        torch.roll(g, -1, 0)[:, :, :wr - tr_t - m],
+    ], dim=2)
+    return torch.cat([
+        torch.roll(rows, 1, 1)[:, :, :, tz_t - m:],
+        rows,
+        torch.roll(rows, -1, 1)[:, :, :, :wz - tz_t - m],
+    ], dim=3)

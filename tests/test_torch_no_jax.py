@@ -1,0 +1,68 @@
+"""Guards of the port: it imports neither JAX nor the JAX package, and its
+entry points default to the CUDA card (raising where there is none)."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "fusion_sim_tpu")
+
+
+def _port_sources():
+    files = sorted((ROOT / "fusion_sim_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_guard_sees_a_forbidden_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import numpy\nfrom jax import numpy as jnp\n"
+                     "def f():\n    import fusion_sim_tpu.constants\n")
+    assert [m for m in _imported_modules(probe)
+            if m.split(".")[0] in FORBIDDEN] == ["jax",
+                                                 "fusion_sim_tpu.constants"]
+
+
+def test_default_device_is_cuda():
+    from fusion_sim_torch._device import resolve_device
+    from fusion_sim_torch.models import electrostatic as es
+    from fusion_sim_torch.ops.sorted_deposit import Tiling2D
+
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    config = es.ESConfig(grid_shape=(32, 32), cell_size=(0.1, 0.1), dt=0.05,
+                         charge=-1e-3, mass=1e-3)
+    pos = np.random.default_rng(0).random((256, 2)).astype(np.float32) * 32
+    with pytest.raises(RuntimeError, match="CUDA"):
+        es.ElectrostaticPIC(config, pos, 0 * pos)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        es.SortedElectrostaticPIC(config, pos, 0 * pos, backend="pallas",
+                                  tiling=Tiling2D(16, 16, 256, margin=2))
+    assert resolve_device("cpu").type == "cpu"
