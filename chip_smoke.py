@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's kernels and drive its main path on one CUDA card.
+"""Build the port's kernels and drive its main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,16 +8,32 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 1. card      — name and power limit (nvidia-smi), CUDA and torch versions;
 2. build     — every ``fusion_sim_torch/csrc/*.cu`` with nvcc for sm_90a,
                one nvcc per source, all started together;
-3. kernels   — each kernel against its plain PyTorch version on the card
-               at the headline tiling (thermal and heavy-spill inputs), and
-               a small model run on the card against the same run on the CPU;
-4. main path — ``SortedElectrostaticPIC(backend='pallas')`` at the
+3. kernels   — each kernel against its plain PyTorch version on the card:
+               B1 (es2d_substep) at the ES headline tiling, thermal and
+               heavy-spill inputs; B2 (pusher_substep) at the fused pusher's
+               default tiling (8 x 100, margin 6) on the default scenario,
+               its own and a heavy-spill input; B3 (gather2d) at the pallas
+               pusher's default tiling (50 x 50, margin 4), nearest with 12
+               and 1 channels and cic with 6; then small ES and pusher runs
+               (backends fused and pallas) on the card against the same
+               runs on the CPU;
+4. ES main path — ``SortedElectrostaticPIC(backend='pallas')`` at the
                headline size (9,999,360 particles, 512^2, tile 32, margin
                10, resort every 20): one warm window, two timed windows;
-               launch counts, drops, finiteness and charge are checked, then
-               each kernel is timed against its plain version and its bound
-               on the main path's own inputs, and one profiled window
-               shows the device time by kernel and the device busy share.
+               launch counts, drops, finiteness and charge are checked, B1
+               is timed against its plain version and its bound on the
+               path's own inputs, and one profiled window shows the device
+               time by kernel and the device busy share;
+5. pusher    — ``CylindricalParticlePusher`` on the default scenario at
+               16,810,000 protons, 400 x 800, ``enable_sorted_path(
+               backend='fused', resort_every=10, spill_capacity=16384)``:
+               one warm window, three timed windows, drops, validity,
+               finiteness, B2 launches and a density frame checked, B2
+               timed on the path's own inputs, one profiled window;
+5b. pallas   — the same scenario at 1,048,576 protons with
+               ``backend='pallas'`` (resort 12, respawn 512, spill 32768):
+               B3 launches and drops checked, B3 timed on the path's inputs,
+               one profiled window.
 
 The line before the last lists the kernels as JSON; the last line is the
 result: ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -44,6 +60,10 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def log(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
 def median_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
     """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
     for _ in range(warm):
@@ -61,6 +81,49 @@ def median_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
     return float(np.median(times))
 
 
+def zero_counts(kernel_modules) -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for mod in kernel_modules:
+        mod.LAUNCHES = 0
+
+
+def bound(bytes_moved: float, ops: float):
+    """(ms, 'bytes'|'operations'): the larger of bytes over the H100's
+    memory rate and f32 operations over its peak f32 rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def profile_window(torch, phase, label, fn):
+    """One profiled window: device time by kernel and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and "CUDA" in str(e.device_type)]
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        log(phase, "profiler recorded no device time: breakdown not "
+                   "measured")
+        return
+    log(phase, f"profiled window ({label}): wall {wall_ms:.2f} ms "
+               f"(profiler on), device busy {busy:.2f} ms "
+               f"({100 * busy / wall_ms:.1f}%), {sum(r[1] for r in rows)} "
+               f"device ops")
+    for ms, count, key in sorted(rows, reverse=True)[:10]:
+        log(phase, f"  {ms:9.3f} ms {count:5d}x {key[:90]}")
+
+
+# -- ES (kernel B1) ------------------------------------------------------------
+
 def headline_config(es, n: int, cells: int = 512):
     length = 2 * np.pi
     d = length / cells
@@ -70,13 +133,12 @@ def headline_config(es, n: int, cells: int = 512):
 
 
 def compare_substep(torch, fp, args, tol_rho=1e-5, atol=1e-5):
-    """Kernel vs plain on the same inputs; returns (max_abs_err, report).
+    """B1 vs plain on the same inputs; returns (max_abs_err, report).
     Launches made here are not part of any counted run."""
-    e_grid, pos, vel, w, tid, shape, tiling, qm_dt, c_r, c_z = args
     k = fp.fused_es2d_substep(*args)
     p = fp.fused_es2d_substep_plain(*args)
     torch.cuda.synchronize()
-    valid = w != 0
+    valid = args[3] != 0
     flips = int(((k[3] != p[3]) & valid).sum())
     if flips:
         raise AssertionError(f"in_win differs on {flips} valid rows")
@@ -97,70 +159,18 @@ def compare_substep(torch, fp, args, tol_rho=1e-5, atol=1e-5):
 
 
 def substep_bound_ms(n_rows: int, n_valid: int, shape, block: int):
-    """Least time for one substep on an H100: each row's position,
-    velocity and weight read once and position, velocity and in_win
-    written once, the E grid read once, rho written once, one tile id per
-    block; against ~60 f32 operations per weighted row."""
+    """Least time for one B1 substep: each row's position, velocity and
+    weight read once and position, velocity and in_win written once, the
+    E grid read once, rho written once, one tile id per block; against
+    ~60 f32 operations per weighted row."""
     nr, nz = shape
     bytes_moved = (n_rows * (8 + 8 + 4 + 8 + 8 + 1) + nr * nz * (8 + 4)
                    + (n_rows // block) * 4)
-    ops = 60 * n_valid
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations"), bytes_moved
+    return (*bound(bytes_moved, 60 * n_valid), bytes_moved)
 
 
-def main() -> None:
-    try:
-        import torch
-    except ImportError as exc:
-        fail(f"torch is not importable: {exc}")
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this needs a CUDA card")
-    sys.path.insert(0, HERE)
-    try:
-        import fusion_sim_torch
-        from fusion_sim_torch.models import electrostatic as es
-        from fusion_sim_torch.ops import _build
-        from fusion_sim_torch.ops import fused_pic as fp
-        from fusion_sim_torch.ops.sorted_deposit import (Tiling2D,
-                                                         build_padded_layout)
-    except ImportError as exc:
-        fail(f"fusion_sim_torch is not importable next to chip_smoke.py: "
-             f"{exc}")
-    if not os.path.abspath(fusion_sim_torch.__file__).startswith(HERE):
-        fail(f"fusion_sim_torch came from {fusion_sim_torch.__file__}, not "
-             f"from this checkout")
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # -- 1. card ------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"[1 card] {smi}", flush=True)
-    print(smi, flush=True)
-    print(f"[1 card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}, count "
-          f"{torch.cuda.device_count()}", flush=True)
-
-    # -- 2. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    for name, (secs, report) in built.items():
-        usage = [ln.strip() for ln in report.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"[2 build] {name}: {secs:.1f} s; " + " | ".join(usage),
-              flush=True)
-    print(f"[2 build] all sources in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
-    # -- 3. kernels vs plain, and a small run vs the CPU ----------------------
+def phase3_es(torch, es, fp, Tiling2D, build_padded_layout, dev, tiling):
     shape = (512, 512)
-    tiling = Tiling2D(tile_r=32, tile_z=32, block=1024, margin=10)
     rng = np.random.default_rng(1)
     n3 = 1 << 20
     cfg3 = headline_config(es, n3)
@@ -184,9 +194,9 @@ def main() -> None:
         p_ms = median_ms(torch, lambda: fp.fused_es2d_substep_plain(*args))
         b_ms, b_by, _ = substep_bound_ms(pos_p.shape[0], int(valid.sum()),
                                          shape, tiling.block)
-        print(f"[3 kernels] es2d_substep {case} ({pos_p.shape[0]} rows): "
-              f"{report}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        log("3 kernels", f"es2d_substep {case} ({pos_p.shape[0]} rows): "
+                         f"{report}; kernel {k_ms:.4f} ms, plain "
+                         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
     n_small, cells = 16384, 64
     cfg_s = headline_config(es, n_small, cells)
@@ -214,13 +224,14 @@ def main() -> None:
                for a in range(2))
     if dmax > 1e-3:
         raise AssertionError(f"small run positions differ by {dmax}")
-    print(f"[3 kernels] small run (16384 particles, 64^2, 10 steps, "
-          f"{gpu.state.spill} spilled rows patched): card vs CPU kinetic "
-          f"{e_g['kinetic']:.9g} / {e_c['kinetic']:.9g}, field "
-          f"{e_g['field']:.9g} / {e_c['field']:.9g}, sorted positions "
-          f"within {dmax:.3g}", flush=True)
+    log("3 kernels", f"small ES run (16384 particles, 64^2, 10 steps, "
+                     f"{gpu.state.spill} spilled rows patched): card vs CPU "
+                     f"kinetic {e_g['kinetic']:.9g} / {e_c['kinetic']:.9g}, "
+                     f"field {e_g['field']:.9g} / {e_c['field']:.9g}, sorted "
+                     f"positions within {dmax:.3g}")
 
-    # -- 4. main path at the headline size ------------------------------------
+
+def phase4_es_main(torch, es, fp, dev, tiling, smi, kernel_modules):
     n = 10_000_000 - 10_000_000 % 1024
     cfg = headline_config(es, n)
     rng = np.random.default_rng(0)
@@ -233,17 +244,16 @@ def main() -> None:
         spill_capacity=16384, spill_tiers=(1024, 4096),
         pallas_precision="exact_bf16_pack", check_spill=False)
     torch.cuda.synchronize()
-    print(f"[4 main] set-up {time.perf_counter() - t0:.2f} s "
-          f"({n} particles, {sim.state.position.shape[0]} layout rows)",
-          flush=True)
+    log("4 ES", f"set-up {time.perf_counter() - t0:.2f} s ({n} particles, "
+                f"{sim.state.position.shape[0]} layout rows)")
     t0 = time.perf_counter()
     sim.step(resort)
     torch.cuda.synchronize()
-    print(f"[4 main] warm window ({resort} steps + resort) "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    log("4 ES", f"warm window ({resort} steps + resort) "
+                f"{time.perf_counter() - t0:.3f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    fp.LAUNCHES = 0
+    zero_counts(kernel_modules)
     rates, steps = [], 0
     for _ in range(2):
         t0 = time.perf_counter()
@@ -270,13 +280,12 @@ def main() -> None:
         raise AssertionError(f"charge {q} vs n*w0 {n * w0}: {rel:.3g} "
                              f"relative")
     rate = float(np.median(rates))
-    print(f"[4 main] {smi}: {steps} timed steps, windows "
-          f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, median "
-          f"{rate:.3f} steps/s = {rate * n:.4g} particle updates/s; "
-          f"launches {launches}; spill patched {st.spill}, dropped "
-          f"{st.spill_dropped}; charge error {rel:.3g} relative; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
+    log("4 ES", f"{smi}: {steps} timed steps, windows "
+                f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, median "
+                f"{rate:.3f} steps/s = {rate * n:.4g} particle updates/s; "
+                f"launches {launches}; spill patched {st.spill}, dropped "
+                f"{st.spill_dropped}; charge error {rel:.3g} relative; peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # kernel vs plain and bound, on the main path's own inputs
     rho = st.rho - torch.sum(st.rho) / math.prod(cfg.grid_shape)
@@ -291,48 +300,461 @@ def main() -> None:
                      reps=20, warm=1)
     b_ms, b_by, b_bytes = substep_bound_ms(st.position.shape[0], n_valid,
                                            cfg.grid_shape, tiling.block)
-    print(f"[4 main] es2d_substep on the main path's inputs "
-          f"({st.position.shape[0]} rows): {report}; kernel {k_ms:.4f} ms "
-          f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective), plain "
-          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    log("4 ES", f"es2d_substep on the main path's inputs "
+                f"({st.position.shape[0]} rows): {report}; kernel "
+                f"{k_ms:.4f} ms ({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s "
+                f"effective), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by})")
     solve_ms = median_ms(torch, lambda: es.solve_fields(cfg, rho))
-    print(f"[4 main] solve_fields (cuFFT, 512^2) {solve_ms:.4f} ms",
-          flush=True)
-
-    # where a window's time goes: device time by kernel, device busy share
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.step(resort)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if getattr(e, "device_type", None) is not None
-            and "CUDA" in str(e.device_type)]
-    busy = sum(r[0] for r in rows)
-    if busy > 0:
-        print(f"[4 main] profiled window ({resort} steps + resort): wall "
-              f"{wall_ms:.2f} ms (profiler on), device busy {busy:.2f} ms "
-              f"({100 * busy / wall_ms:.1f}%), {sum(r[1] for r in rows)} "
-              f"device ops", flush=True)
-        for ms, count, key in sorted(rows, reverse=True)[:10]:
-            print(f"[4 main]   {ms:9.3f} ms {count:5d}x {key[:90]}",
-                  flush=True)
-    else:
-        print("[4 main] profiler recorded no device time: breakdown not "
-              "measured", flush=True)
-
-    kernels = [{
+    log("4 ES", f"solve_fields (cuFFT, 512^2) {solve_ms:.4f} ms")
+    profile_window(torch, "4 ES", f"{resort} steps + resort",
+                   lambda: sim.step(resort))
+    return {
         "name": "B1:es2d_substep", "route": "cuda",
         "source": "fusion_sim_torch/csrc/es2d_substep.cu",
         "replaces": "fusion_sim_tpu/ops/pallas_pic.py:271",
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    }
+
+
+# -- pusher (kernels B2, B3) ----------------------------------------------------
+
+def pusher_sim(pm, sc, nparticles: int, device="cuda", **spec_kw):
+    """The default scenario (apply_default_scenario) at nparticles^2."""
+    sim = pm.CylindricalParticlePusher(
+        dict(sc.DEFAULT_SPEC, nparticles=nparticles, **spec_kw),
+        device=device)
+    sc.apply_default_scenario(sim)
+    return sim
+
+
+def packed13(torch, fields):
+    c = fields.coeffs
+    return torch.cat([c.r1, c.r2, c.r3, c.a, fields.sink_mask[..., None]],
+                     dim=-1).contiguous()
+
+
+def compare_pusher(torch, fpu, args, valid, rel=1e-6):
+    """B2 vs plain on the same inputs: in_win and sink equal on every valid
+    row, positions and velocities within ``rel`` of their scale (expected
+    0: -fmad=false).  Returns (max_abs_err, report)."""
+    k = fpu.fused_pusher_substep(*args)
+    p = fpu.fused_pusher_substep_plain(*args)
+    torch.cuda.synchronize()
+    for name, i in (("in_win", 3), ("sink", 2)):
+        bad = int(((k[i] != p[i]) & valid).sum())
+        if bad:
+            raise AssertionError(f"B2 {name} differs on {bad} valid rows")
+    errs = []
+    for name, i in (("position", 0), ("velocity", 1)):
+        err = float((k[i] - p[i])[valid].abs().max())
+        scale = float(p[i][valid].abs().max())
+        if not err <= rel * scale:
+            raise AssertionError(f"B2 {name} differs by {err} (scale "
+                                 f"{scale})")
+        errs.append(err)
+    spilled = int((~p[3] & valid).sum())
+    return max(errs), (f"in_win and sink equal, spilled rows {spilled}, "
+                       f"max|dpos| {errs[0]:.3g}, max|dvel| {errs[1]:.3g}")
+
+
+def pusher_bound_ms(n_rows: int, n_fresh: int, shape, block: int):
+    """Least time for one B2 half-step: position, velocity and alive read
+    once, 12 B of uniforms for each fresh row, position, velocity, sink and
+    in_win written once, the 13-channel table read once, one tile id a
+    block; against ~60 f32 operations a row."""
+    nr, nz = shape
+    bytes_moved = (n_rows * (12 + 12 + 4) + n_fresh * 12
+                   + n_rows * (12 + 12 + 4 + 1) + nr * nz * 13 * 4
+                   + (n_rows // block) * 4)
+    return (*bound(bytes_moved, 60 * n_rows), bytes_moved)
+
+
+def compare_gather(torch, sg, args, valid):
+    """B3 vs plain: in_win equal on every row, values equal on valid rows
+    up to 1e-6 of their scale (expected 0).  Returns (max_abs_err,
+    report)."""
+    k = sg.gather_sorted_2d_window(*args)
+    p = sg.gather_sorted_2d_window_plain(*args)
+    torch.cuda.synchronize()
+    bad = int((k[1] != p[1]).sum())
+    if bad:
+        raise AssertionError(f"B3 in_win differs on {bad} rows")
+    err = float((k[0] - p[0])[valid].abs().max())
+    scale = float(p[0][valid].abs().max())
+    if not err <= 1e-6 * scale:
+        raise AssertionError(f"B3 values differ by {err} (scale {scale})")
+    out = int((~p[1] & valid).sum())
+    return err, (f"in_win equal, out-of-window rows {out}, max|dvalue| "
+                 f"{err:.3g}")
+
+
+def gather_bound_ms(n_rows: int, n_c: int, shape, block: int, mode: str):
+    """Least time for one B3 gather: positions read once, C values and
+    in_win written once, the C-channel grid read once, one tile id a
+    block; against ~4 (nearest) or ~20 (cic) f32 operations a value."""
+    nr, nz = shape
+    bytes_moved = (n_rows * (8 + 4 * n_c + 1) + nr * nz * n_c * 4
+                   + (n_rows // block) * 4)
+    ops = n_rows * (10 + n_c * (4 if mode == "nearest" else 20))
+    return (*bound(bytes_moved, ops), bytes_moved)
+
+
+def phase3_pusher(torch, pm, ps, sc, fpu, sg, Tiling2D, dev):
+    from fusion_sim_torch.ops.boris import pack_coefficients
+    from fusion_sim_torch.ops.fused_pusher import cell_coords
+
+    sim = pusher_sim(pm, sc, 1024)                 # 1,048,576 protons
+    shape = (sim.spec.nr, sim.spec.nz)
+    sim.enable_sorted_path(backend="fused", resort_every=10,
+                           spill_capacity=16384)
+    tiling = sim._sorted_tiling
+    if tiling != Tiling2D(8, 100, 1024, 6):
+        raise AssertionError(f"fused default tiling {tiling}")
+    st = sim._sorted_state
+    table = packed13(torch, sim.fields)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rand = torch.rand((st.position.shape[0], 4), generator=gen, device=dev)
+    fresh = st.alive.clone()
+    fresh[st.valid.nonzero()[::97, 0]] = 0.0       # ~1% fresh rows
+    for case, vel, alive in (("scenario", st.velocity, st.alive),
+                             ("heavy spill", st.velocity * 40.0, fresh)):
+        args = (table, st.position, vel.contiguous(), alive, rand,
+                st.tile_id, shape[0], shape[1], tiling,
+                sim.spec.step_factor)
+        _, report = compare_pusher(torch, fpu, args, st.valid)
+        k_ms = median_ms(torch, lambda: fpu.fused_pusher_substep(*args))
+        p_ms = median_ms(torch, lambda: fpu.fused_pusher_substep_plain(
+            *args), reps=5, warm=1)
+        b_ms, b_by, _ = pusher_bound_ms(st.position.shape[0],
+                                        int((alive <= 0.5).sum()), shape,
+                                        tiling.block)
+        log("3 kernels", f"pusher_substep {case} ({st.position.shape[0]} "
+                         f"rows, tiling {tiling.tile_r}x{tiling.tile_z}): "
+                         f"{report}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                         f"ms, bound {b_ms:.4f} ms ({b_by})")
+
+    sim.enable_sorted_path(backend="pallas", resort_every=12,
+                           spill_capacity=8192, respawn_capacity=512)
+    tiling = sim._sorted_tiling
+    if tiling != Tiling2D(50, 50, 1024, 4):
+        raise AssertionError(f"pallas default tiling {tiling}")
+    st = sim._sorted_state
+    cell = cell_coords(st.position, *shape)
+    rng = np.random.default_rng(12)
+    jitter = torch.remainder(
+        cell + torch.tensor(1.5 * rng.standard_normal(cell.shape),
+                            dtype=torch.float32, device=dev),
+        torch.tensor(shape, dtype=torch.float32, device=dev)).contiguous()
+    grid6 = torch.tensor(rng.standard_normal(shape + (6,)),
+                         dtype=torch.float32, device=dev)
+    for label, grid, pos, mode in (
+            ("nearest C=12", pack_coefficients(sim.fields.coeffs), cell,
+             "nearest"),
+            ("nearest C=1", sim.fields.sink_mask[..., None], cell,
+             "nearest"),
+            ("cic C=6 (jittered)", grid6, jitter, "cic")):
+        args = (grid, pos, st.tile_id, shape, tiling, mode)
+        _, report = compare_gather(torch, sg, args, st.valid)
+        k_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window(*args))
+        p_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window_plain(
+            *args), reps=5, warm=1)
+        n_c = grid.shape[2]
+        b_ms, b_by, _ = gather_bound_ms(pos.shape[0], n_c, shape,
+                                        tiling.block, mode)
+        log("3 kernels", f"gather2d {label} ({pos.shape[0]} rows, tiling "
+                         f"50x50): {report}; kernel {k_ms:.4f} ms, plain "
+                         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del sim, st
+
+    # a small pusher run on the card against the same run on the CPU: the
+    # same carried state and fields, the same uniforms, a resort between
+    small = dict(nr=64, nz=128)
+    cpu = pusher_sim(pm, sc, 32, device="cpu", **small)
+    rng = np.random.default_rng(13)
+    n = cpu.spec.n_total
+    r = np.sqrt(rng.random(n))
+    th = 2 * np.pi * rng.random(n)
+    cpu.set({"position": np.stack([r * np.cos(th), r * np.sin(th),
+                                   2 * rng.random(n)], -1),
+             "velocity": 0.02 * rng.standard_normal((n, 3))})
+    gpu = pm.CylindricalParticlePusher(dict(sc.DEFAULT_SPEC, nparticles=32,
+                                            **small), device="cuda")
+    gpu.set_state(cpu.get_state())
+    tiling = Tiling2D(8, 16, 128, 3)
+    for backend in ("fused", "pallas"):
+        step = ps.make_sorted_step_fn(cpu.spec, tiling, 4096, backend)
+        resort = ps.make_sorted_resort_fn(cpu.spec, tiling)
+        st_c = ps.to_sorted_state(cpu.state, cpu.spec, tiling)
+        st_g = ps.to_sorted_state(gpu.state, gpu.spec, tiling)
+        gen = torch.Generator().manual_seed(7)
+        for s in range(6):
+            rands = [torch.rand((st_c.position.shape[0], 4), generator=gen)
+                     for _ in range(2)]
+            st_c = step(cpu.fields, st_c, rands)
+            st_g = step(gpu.fields, st_g, [x.to(dev) for x in rands])
+            if s == 2:
+                st_c, st_g = resort(st_c), resort(st_g)
+        for name in ("tile_id", "valid", "alive"):
+            if not torch.equal(getattr(st_c, name),
+                               getattr(st_g, name).cpu()):
+                raise AssertionError(f"small {backend} run: {name} differs "
+                                     f"between card and CPU")
+        counts = [(getattr(st_c, k), getattr(st_g, k))
+                  for k in ("spill", "dropped", "dropped_over")]
+        if any(a != b for a, b in counts):
+            raise AssertionError(f"small {backend} run counters {counts}")
+        errs = [float((getattr(st_g, k).cpu() - getattr(st_c, k)).abs()
+                      .max()) for k in ("position", "velocity")]
+        scales = [float(getattr(st_c, k).abs().max())
+                  for k in ("position", "velocity")]
+        if any(e > 1e-6 * s for e, s in zip(errs, scales)):
+            raise AssertionError(f"small {backend} run: card vs CPU "
+                                 f"position/velocity differ by {errs}")
+        log("3 kernels", f"small pusher run ({backend}, {n} protons, 64 x "
+                         f"128, 6 steps across a resort, spill "
+                         f"{st_g.spill}, respawned rows now "
+                         f"{int((st_g.alive == 0).sum())}): card vs CPU "
+                         f"tile ids, validity, alive and counters equal, "
+                         f"max|dpos| {errs[0]:.3g}, max|dvel| {errs[1]:.3g}")
+
+
+def run_windows(torch, sim, windows: int, cadence: int):
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        sim.step(cadence)
+        torch.cuda.synchronize()
+        rates.append(cadence / (time.perf_counter() - t0))
+    return rates
+
+
+def check_pusher_state(torch, st, n):
+    if st.dropped != 0 or st.dropped_over != 0:
+        raise AssertionError(f"dropped {st.dropped}, dropped_over "
+                             f"{st.dropped_over}")
+    n_valid = int(st.valid.sum())
+    if n_valid != n:
+        raise AssertionError(f"{n_valid} valid rows, expected {n}")
+    for name in ("position", "velocity", "alive"):
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            raise AssertionError(f"sorted state {name} is not finite")
+
+
+def phase5_fused(torch, pm, sc, fpu, Tiling2D, dev, smi, kernel_modules):
+    t0 = time.perf_counter()
+    sim = pusher_sim(pm, sc, 4100)                 # 16,810,000 protons
+    n = sim.spec.n_total
+    cadence = 10
+    sim.enable_sorted_path(backend="fused", resort_every=cadence,
+                           spill_capacity=16384)
+    torch.cuda.synchronize()
+    st = sim._sorted_state
+    rows = st.position.shape[0]
+    expect = -(-n // 1024) * 1024 + 400 * 1024    # 17,220,608 at 4100^2
+    if sim._sorted_tiling != Tiling2D(8, 100, 1024, 6) or rows != expect:
+        raise AssertionError(f"layout {sim._sorted_tiling}, {rows} rows")
+    log("5 pusher", f"set-up {time.perf_counter() - t0:.2f} s ({n} protons, "
+                    f"400 x 800, {rows} layout rows, tiling 8 x 100 margin "
+                    f"6, resort every {cadence}, spill capacity 16384)")
+    t0 = time.perf_counter()
+    sim.step(cadence)
+    torch.cuda.synchronize()
+    log("5 pusher", f"warm window ({cadence} steps + resort) "
+                    f"{time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    spill0 = sim._sorted_state.spill
+    zero_counts(kernel_modules)
+    rates = run_windows(torch, sim, 3, cadence)
+    launches = fpu.LAUNCHES
+    steps = 3 * cadence
+    if launches != 2 * steps:
+        raise AssertionError(f"B2 launches {launches} != 2 x {steps} steps")
+    st = sim._sorted_state
+    check_pusher_state(torch, st, n)
+    rate = float(np.median(rates))
+    log("5 pusher", f"{smi}: {steps} timed steps, windows "
+                    f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, "
+                    f"median {rate:.3f} steps/s = {2 * n * rate:.4g} "
+                    f"pushes/s; B2 launches {launches}; spill patched "
+                    f"{st.spill - spill0} rows ({(st.spill - spill0) / steps:.1f}"
+                    f" a step), dropped {st.dropped}, dropped_over "
+                    f"{st.dropped_over}; peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    frame = sim.density()
+    torch.cuda.synchronize()
+    if tuple(frame.shape) != (400, 800, 3) or not bool(
+            torch.isfinite(frame).all()):
+        raise AssertionError(f"density frame {tuple(frame.shape)} not "
+                             f"finite/(400, 800, 3)")
+    log("5 pusher", f"density frame (400, 800, 3) finite, max "
+                    f"{float(frame.max()):.4g}")
+
+    st = sim._sorted_state
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rand = torch.rand((rows, 4), generator=gen, device=dev)
+    args = (packed13(torch, sim.fields), st.position, st.velocity, st.alive,
+            rand, st.tile_id, 400, 800, sim._sorted_tiling,
+            sim.spec.step_factor)
+    err, report = compare_pusher(torch, fpu, args, st.valid)
+    k_ms = median_ms(torch, lambda: fpu.fused_pusher_substep(*args))
+    p_ms = median_ms(torch, lambda: fpu.fused_pusher_substep_plain(*args),
+                     reps=5, warm=1)
+    b_ms, b_by, b_bytes = pusher_bound_ms(rows, int((st.alive <= 0.5).sum()),
+                                          (400, 800), 1024)
+    log("5 pusher", f"pusher_substep on the path's inputs ({rows} rows): "
+                    f"{report}; kernel {k_ms:.4f} ms "
+                    f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective), "
+                    f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    profile_window(torch, "5 pusher", f"{cadence} steps + resort",
+                   lambda: sim.step(cadence))
+    return {
+        "name": "B2:pusher_substep", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/pusher_substep.cu",
+        "replaces": "fusion_sim_tpu/ops/pallas_pusher.py:206",
+        "launches": launches, "max_abs_err": err, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def phase5b_pallas(torch, pm, sc, sg, Tiling2D, smi, kernel_modules):
+    from fusion_sim_torch.ops.boris import pack_coefficients
+    from fusion_sim_torch.ops.fused_pusher import cell_coords
+
+    t0 = time.perf_counter()
+    sim = pusher_sim(pm, sc, 1024)                 # 1,048,576 protons
+    n = sim.spec.n_total
+    cadence = 12
+    # bench.py's rung (resort 12, respawn 512) with the patch buffer sized
+    # for this tiling: the rung's 8192 suits the fused tiling's margin 6;
+    # at the pallas default's margin 4 late-window substeps overflow it
+    sim.enable_sorted_path(backend="pallas", resort_every=cadence,
+                           spill_capacity=32768, respawn_capacity=512)
+    st = sim._sorted_state
+    rows = st.position.shape[0]
+    sim.step(cadence)
+    torch.cuda.synchronize()
+    log("5b pallas", f"set-up and warm window {time.perf_counter() - t0:.2f}"
+                     f" s ({n} protons, {rows} layout rows, tiling 50 x 50 "
+                     f"margin 4, resort every {cadence}, spill capacity "
+                     f"32768, respawn capacity 512)")
+    spill0 = sim._sorted_state.spill
+    zero_counts(kernel_modules)
+    rates = run_windows(torch, sim, 2, cadence)
+    launches = sg.LAUNCHES
+    steps = 2 * cadence
+    if launches != 4 * steps:
+        raise AssertionError(f"B3 launches {launches} != 4 x {steps} steps")
+    st = sim._sorted_state
+    check_pusher_state(torch, st, n)
+    rate = float(np.median(rates))
+    log("5b pallas", f"{smi}: {steps} timed steps, windows "
+                     f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, "
+                     f"median {rate:.3f} steps/s = {2 * n * rate:.4g} "
+                     f"pushes/s; B3 launches {launches}; spill patched "
+                     f"{st.spill - spill0}, dropped {st.dropped}, "
+                     f"dropped_over {st.dropped_over}")
+    shape = (400, 800)
+    args = (pack_coefficients(sim.fields.coeffs),
+            cell_coords(st.position, *shape), st.tile_id, shape,
+            sim._sorted_tiling, "nearest")
+    err, report = compare_gather(torch, sg, args, st.valid)
+    k_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window(*args))
+    p_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window_plain(*args),
+                     reps=5, warm=1)
+    b_ms, b_by, b_bytes = gather_bound_ms(rows, 12, shape, 1024, "nearest")
+    log("5b pallas", f"gather2d nearest C=12 on the path's inputs ({rows} "
+                     f"rows): {report}; kernel {k_ms:.4f} ms "
+                     f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective),"
+                     f" plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    profile_window(torch, "5b pallas", f"{cadence} steps + resort",
+                   lambda: sim.step(cadence))
+    return {
+        "name": "B3:gather2d", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/gather2d.cu",
+        "replaces": "fusion_sim_tpu/ops/pallas_gather.py:98",
+        "launches": launches, "max_abs_err": err, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError as exc:
+        fail(f"torch is not importable: {exc}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this needs a CUDA card")
+    sys.path.insert(0, HERE)
+    try:
+        import fusion_sim_torch
+        from fusion_sim_torch import scenarios as sc
+        from fusion_sim_torch.models import electrostatic as es
+        from fusion_sim_torch.models import pusher as pm
+        from fusion_sim_torch.models import pusher_sorted as ps
+        from fusion_sim_torch.ops import _build
+        from fusion_sim_torch.ops import fused_pic as fp
+        from fusion_sim_torch.ops import fused_pusher as fpu
+        from fusion_sim_torch.ops import sorted_gather as sg
+        from fusion_sim_torch.ops.sorted_deposit import (Tiling2D,
+                                                         build_padded_layout)
+    except ImportError as exc:
+        fail(f"fusion_sim_torch is not importable next to chip_smoke.py: "
+             f"{exc}")
+    if not os.path.abspath(fusion_sim_torch.__file__).startswith(HERE):
+        fail(f"fusion_sim_torch came from {fusion_sim_torch.__file__}, not "
+             f"from this checkout")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # -- 1. card ------------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log("1 card", smi)
+    print(smi, flush=True)
+    log("1 card", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+                  f"{torch.cuda.get_device_name(0)}, count "
+                  f"{torch.cuda.device_count()}")
+
+    # -- 2. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    for name, (secs, report) in built.items():
+        usage = [ln.strip() for ln in report.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("2 build", f"{name}: {secs:.1f} s; " + " | ".join(usage))
+    log("2 build", f"all sources in {time.perf_counter() - t0:.1f} s")
+
+    # -- 3. kernels vs plain, small runs vs the CPU ---------------------------
+    tiling = Tiling2D(tile_r=32, tile_z=32, block=1024, margin=10)
+    phase3_es(torch, es, fp, Tiling2D, build_padded_layout, dev, tiling)
+    phase3_pusher(torch, pm, ps, sc, fpu, sg, Tiling2D, dev)
+    log("3 kernels", f"done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 4. the ES main path ----------------------------------------------------
+    kernel_modules = (fp, fpu, sg)
+    b1 = phase4_es_main(torch, es, fp, dev, tiling, smi, kernel_modules)
+    torch.cuda.empty_cache()
+    log("4 ES", f"done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 5. the pusher's fused path at full width, 5b. its pallas path --------
+    b2 = phase5_fused(torch, pm, sc, fpu, Tiling2D, dev, smi,
+                      kernel_modules)
+    torch.cuda.empty_cache()
+    log("5 pusher", f"done at {time.perf_counter() - t_start:.1f} s")
+    b3 = phase5b_pallas(torch, pm, sc, sg, Tiling2D, smi, kernel_modules)
+    log("5b pallas", f"done at {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": [b1, b2, b3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,12 +7,18 @@ ported path becomes a hand-written Hopper kernel under ``csrc/`` (built
 with ``nvcc`` at first use and bound with ``ctypes``), with a plain PyTorch
 version of the same function beside it.
 
-Ported so far (the sorted 2D electrostatic PIC main path):
+Ported so far:
 
 * ``ops``    — CIC interpolation, spectral Poisson solve, the tile-sorted
-  layout, and the fused gather + kick + drift + deposit substep.
+  layout and its windowed gathers, the fused ES substep (kernel B1); the
+  pusher's Boris rotation, field construction, inverse-CDF sampling,
+  drift/sink/respawn, moment deposit, and its fused half-step (kernel B2)
+  and windowed gather (kernel B3).
 * ``models`` — ``electrostatic``: ``ElectrostaticPIC`` and
-  ``SortedElectrostaticPIC(backend='pallas')``.
+  ``SortedElectrostaticPIC(backend='pallas')``; ``pusher``:
+  ``CylindricalParticlePusher`` (grid-parity path and the tile-sorted path,
+  backends xla / pallas / fused).
+* ``scenarios``, ``constants``, ``config``, ``utils.render``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``_device.resolve_device``).

@@ -10,7 +10,8 @@ node).  The fused substep (ops/fused_pic.py) depends on that guarantee.
 The reference deposits with one-hot digit matmuls per block and folds
 tile windows with dense rolls (TPU forms).  Here ``deposit_sorted_2d``
 keeps the contract (same window criterion, same spill mask) and deposits
-the in-window rows straight onto the grid, which is the same sum.
+the in-window rows straight onto the grid, which is the same sum;
+``gather_sorted_2d`` reads the window cells straight from the grid.
 ``fold_tile_windows``/``extract_tile_windows`` keep their dense-roll form.
 """
 
@@ -177,6 +178,53 @@ def deposit_sorted_2d(position: torch.Tensor, weights: torch.Tensor,
                               shape)
     spill_mask = (~in_win) & (weights != 0)
     return grid, spill_mask.sum(), spill_mask
+
+
+def gather_sorted_2d(grid: torch.Tensor, position: torch.Tensor,
+                     tile_id: torch.Tensor, shape: tuple[int, int],
+                     tiling: Tiling2D, mode: str = "cic"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tile-window gather for tile-sorted particles; returns ``(values
+    (N[, C]), in_win (N,) bool)``.
+
+    ``grid`` (nr, nz[, C]); ``position`` (N, 2) grid units in the padded
+    sorted layout.  A row is in its window when its base cell floor(x)
+    lies within the block's window; every row reads its block's window
+    at the base cell clipped into the window, so out-of-window rows get
+    clamped-window values (callers patch them exactly).  ``mode='cic'``:
+    linear weights (1 - frac, frac) at the clipped cell and the next, with
+    frac = x - floor(x), summed z first and then r (the reference's einsum
+    order); ``mode='nearest'``: the value at the clipped cell.  The
+    reference's one-hot window matmuls select the same window cells."""
+    if mode not in ("cic", "nearest"):
+        raise ValueError(f"mode {mode!r} (cic|nearest)")
+    nr, nz = shape
+    wr, wz = tiling.window()
+    n = position.shape[0]
+    if n % tiling.block:
+        raise ValueError(f"N={n} not a multiple of block={tiling.block}")
+    channels = tuple(grid.shape[2:])
+    flat = grid.reshape(nr * nz, -1)
+    base_f = torch.floor(position)
+    frac = position - base_f
+    base = base_f.to(torch.int64)
+    otr, otz = (o.repeat_interleave(tiling.block)
+                for o in window_origins(tile_id, shape, tiling))
+    dr = torch.remainder(base[:, 0] - otr, nr)
+    dz = torch.remainder(base[:, 1] - otz, nz)
+    in_win = (dr < wr - 1) & (dz < wz - 1)
+    gi = torch.remainder(otr + torch.clamp(dr, 0, wr - 2), nr)
+    gj = torch.remainder(otz + torch.clamp(dz, 0, wz - 2), nz)
+    if mode == "nearest":
+        out = flat[gi * nz + gj]
+    else:
+        gi1, gj1 = torch.remainder(gi + 1, nr), torch.remainder(gj + 1, nz)
+        fr, fz = frac[:, 0:1], frac[:, 1:2]
+        ar0, ar1, az0, az1 = 1.0 - fr, fr, 1.0 - fz, fz
+        out = (ar0 * (az0 * flat[gi * nz + gj] + az1 * flat[gi * nz + gj1])
+               + ar1 * (az0 * flat[gi1 * nz + gj]
+                        + az1 * flat[gi1 * nz + gj1]))
+    return out.reshape(n, *channels), in_win
 
 
 def fold_tile_windows(tw: torch.Tensor, shape: tuple[int, int],

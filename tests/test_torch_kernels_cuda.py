@@ -72,3 +72,103 @@ def test_fused_es2d_substep_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="e_grid"):
         fused_pic.fused_es2d_substep(e_grid.cpu(), pos, pos, w, tid, shape,
                                      tiling, 0.1, 0.1, 0.1)
+
+
+def _pusher_layout(cuda, backend, tiling, vscale=1.0):
+    """A small default scenario on the card in the sorted layout."""
+    from fusion_sim_torch.models.pusher import CylindricalParticlePusher
+    from fusion_sim_torch.scenarios import apply_default_scenario
+
+    sim = CylindricalParticlePusher(
+        {"radius": 1.0, "height": 2.0, "nr": 64, "nz": 128, "dt": 2e-9,
+         "nparticles": 64, "particle_mass": 1.67e-27,
+         "particle_charge": 1.602e-19}, loop_field_mode="exact",
+        device=cuda)
+    apply_default_scenario(sim)
+    sim.set({"velocity": vscale * 0.002 * np.random.default_rng(3).random(
+        (sim.spec.n_total, 3))})
+    sim.enable_sorted_path(tiling=tiling, resort_every=4, backend=backend)
+    return sim, sim._sorted_state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vscale", [1.0, 300.0])  # scenario / heavy spill
+def test_fused_pusher_substep_kernel_matches_plain(cuda, vscale):
+    """Built with -fmad=false and the plain version's operation order:
+    in_win, sink, positions and velocities bit for bit on valid rows."""
+    from fusion_sim_torch.ops import fused_pusher
+
+    tiling = Tiling2D(tile_r=8, tile_z=16, block=128, margin=3)
+    sim, st = _pusher_layout(cuda, "fused", tiling, vscale)
+    f = sim.fields
+    packed13 = torch.cat([f.coeffs.r1, f.coeffs.r2, f.coeffs.r3, f.coeffs.a,
+                          f.sink_mask[..., None]], -1).contiguous()
+    alive = st.alive.clone()
+    alive[st.valid.nonzero()[:50, 0]] = 0.0           # fresh rows
+    rand = torch.rand((st.position.shape[0], 4), device=cuda)
+    args = (packed13, st.position, st.velocity, alive, rand, st.tile_id,
+            64, 128, tiling, sim.spec.step_factor)
+    before = fused_pusher.LAUNCHES
+    got = fused_pusher.fused_pusher_substep(*args)
+    assert fused_pusher.LAUNCHES == before + 1
+    plain = fused_pusher.fused_pusher_substep_plain(*args)
+    v = st.valid
+    for name, i in (("position", 0), ("velocity", 1), ("sink", 2),
+                    ("in_win", 3)):
+        assert torch.equal(got[i][v], plain[i][v]), name
+    if vscale > 1:
+        assert int((~plain[3] & v).sum()) > 100, "needs actual spill"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,channels", [("nearest", (12,)),
+                                           ("nearest", (1,)), ("cic", (6,)),
+                                           ("cic", ())])
+def test_gather2d_kernel_matches_plain(cuda, mode, channels):
+    from fusion_sim_torch.ops import sorted_gather
+
+    shape = (64, 128)
+    tiling = Tiling2D(tile_r=16, tile_z=16, block=128, margin=2)
+    rng = np.random.default_rng(5)
+    n = 8192
+    pos = torch.tensor(rng.random((n, 2)) * np.array(shape),
+                       dtype=torch.float32, device=cuda)
+    grid = torch.tensor(rng.standard_normal(shape + channels),
+                        dtype=torch.float32, device=cuda)
+    tid, pos_p, valid, _ = build_padded_layout(pos, shape, tiling,
+                                               derive_valid=True)
+    pos_p = torch.remainder(pos_p + 1.5 * torch.randn_like(pos_p),
+                            torch.tensor(shape, device=cuda,
+                                         dtype=torch.float32))
+    args = (grid, pos_p.contiguous(), tid, shape, tiling, mode)
+    before = sorted_gather.LAUNCHES
+    got = sorted_gather.gather_sorted_2d_window(*args)
+    assert sorted_gather.LAUNCHES == before + 1
+    plain = sorted_gather.gather_sorted_2d_window_plain(*args)
+    assert torch.equal(got[1], plain[1])
+    assert torch.equal(got[0][valid], plain[0][valid])
+    assert int((~plain[1] & valid).sum()) > 100, "needs out-of-window rows"
+
+
+@pytest.mark.cuda
+def test_pusher_kernels_reject_bad_inputs(cuda):
+    from fusion_sim_torch.ops import fused_pusher, sorted_gather
+
+    tiling = Tiling2D(tile_r=16, tile_z=16, block=128, margin=2)
+    n = 256
+    table = torch.zeros((64, 64, 13), device=cuda)
+    p3 = torch.zeros((n, 3), device=cuda)
+    w = torch.zeros((n,), device=cuda)
+    rand = torch.zeros((n, 4), device=cuda)
+    tid = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rand"):
+        fused_pusher.fused_pusher_substep(table, p3, p3, w,
+                                          torch.zeros((4, n), device=cuda).t(),
+                                          tid, 64, 64, tiling, 0.6)
+    with pytest.raises(TypeError, match="tile_id"):
+        fused_pusher.fused_pusher_substep(table, p3, p3, w, rand, tid.long(),
+                                          64, 64, tiling, 0.6)
+    with pytest.raises(ValueError, match="grid"):
+        sorted_gather.gather_sorted_2d_window(
+            torch.zeros((64, 64), device=cuda).t(), p3[:, :2].contiguous(),
+            tid, (64, 64), tiling)

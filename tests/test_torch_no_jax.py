@@ -52,10 +52,16 @@ def test_guard_sees_a_forbidden_import(tmp_path):
 def test_default_device_is_cuda():
     from fusion_sim_torch._device import resolve_device
     from fusion_sim_torch.models import electrostatic as es
+    from fusion_sim_torch.models.pusher import CylindricalParticlePusher
     from fusion_sim_torch.ops.sorted_deposit import Tiling2D
+    from fusion_sim_torch.scenarios import apply_default_scenario
 
+    spec = {"radius": 1.0, "height": 2.0, "nr": 16, "nz": 32, "dt": 2e-9,
+            "nparticles": 8, "particle_mass": 1.67e-27,
+            "particle_charge": 1.602e-19}
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
+        assert CylindricalParticlePusher(spec).device.type == "cuda"
         return
     config = es.ESConfig(grid_shape=(32, 32), cell_size=(0.1, 0.1), dt=0.05,
                          charge=-1e-3, mass=1e-3)
@@ -65,4 +71,11 @@ def test_default_device_is_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         es.SortedElectrostaticPIC(config, pos, 0 * pos, backend="pallas",
                                   tiling=Tiling2D(16, 16, 256, margin=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CylindricalParticlePusher(spec)
     assert resolve_device("cpu").type == "cpu"
+    sim = CylindricalParticlePusher(spec, device="cpu")
+    apply_default_scenario(sim)
+    sim.step(1)
+    assert sim.state.position.device.type == "cpu"
+    assert bool(torch.isfinite(sim.state.position).all())
