@@ -14,9 +14,12 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                default tiling (8 x 100, margin 6) on the default scenario,
                its own and a heavy-spill input; B3 (gather2d) at the pallas
                pusher's default tiling (50 x 50, margin 4), nearest with 12
-               and 1 channels and cic with 6; then small ES and pusher runs
-               (backends fused and pallas) on the card against the same
-               runs on the CPU;
+               and 1 channels and cic with 6; B4 (em2d_substep) at the EM
+               tiling (32 x 32, margin 6), thermal and heavy-spill inputs,
+               non-relativistic and relativistic; then small ES, pusher
+               (backends fused and pallas) and EM (gather backends xla,
+               pallas and fused) runs on the card against the same runs on
+               the CPU;
 4. ES main path — ``SortedElectrostaticPIC(backend='pallas')`` at the
                headline size (9,999,360 particles, 512^2, tile 32, margin
                10, resort every 20): one warm window, two timed windows;
@@ -33,9 +36,22 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 5b. pallas   — the same scenario at 1,048,576 protons with
                ``backend='pallas'`` (resort 12, respawn 512, spill 32768):
                B3 launches and drops checked, B3 timed on the path's inputs,
-               one profiled window.
+               one profiled window;
+6. EM main path — ``SortedElectromagneticPIC(gather_backend='fused')`` at
+               the EM rung's size (10,002,432 particles, 512^2, cell 0.5,
+               dt 0.1, tile 32, margin 6, resort every 12, spill capacity
+               16384): one warm window, two timed windows; B4 launches,
+               drops, validity, finiteness and Gauss's law checked, B4
+               timed against its plain version and its bound on the path's
+               own inputs, one profiled window;
+6b. EM pallas — the same configuration at 1,048,576 particles with
+               ``gather_backend='pallas'``: B3 launches (cic, 6 channels)
+               and drops checked, steps/s printed, B3 held bit for bit
+               against its plain version and timed against its bound on the
+               route's own inputs, one profiled window.
 
-The line before the last lists the kernels as JSON; the last line is the
+The line before the last lists the kernels as JSON (B3 twice: once for
+each path that runs it); the last line is the
 result: ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -683,6 +699,346 @@ def phase5b_pallas(torch, pm, sc, sg, Tiling2D, smi, kernel_modules):
     }
 
 
+# -- EM (kernel B4, and B3 on the pallas route) ---------------------------------
+
+EM_TILING = dict(tile_r=32, tile_z=32, block=1024, margin=6)
+
+
+def em_config(em, cells: int = 512, **kw):
+    """examples/bench_em_fused.py's configuration."""
+    d = 0.5
+    return em.EMConfig(grid_shape=(cells, cells), cell_size=(d, d),
+                       dt=0.2 * d, charge=-0.01, mass=0.01,
+                       field_gather="centered", **kw)
+
+
+def em_substep_args(cfg, tiling, table, st):
+    return (table, st.position, st.velocity, st.valid, st.tile_id,
+            cfg.grid_shape, tiling, cfg.charge / cfg.mass * cfg.dt * 0.5,
+            cfg.dt, cfg.cell_size, cfg.charge)
+
+
+def compare_em(torch, fe, args, kw, tol_j=1e-5):
+    """B4 vs plain on the same inputs: in_win, positions and velocities bit
+    for bit on every row, J within ``tol_j`` of max|J| (atomic summation
+    order).  Returns (max_abs_err over rows, report)."""
+    k = fe.fused_em2d_substep(*args, **kw)
+    p = fe.fused_em2d_substep_plain(*args, **kw)
+    torch.cuda.synchronize()
+    valid = args[3]
+    for name, i in (("in_win", 3), ("position", 0), ("velocity", 1)):
+        bad = int((k[i] != p[i]).sum())
+        if bad:
+            raise AssertionError(f"B4 {name} differs on {bad} entries")
+    err_j = float((k[2] - p[2]).abs().max())
+    scale = float(p[2].abs().max())
+    if not err_j <= tol_j * scale:
+        raise AssertionError(f"B4 J differs: {err_j} > {tol_j} * {scale}")
+    spilled = int((~p[3] & valid).sum())
+    err_rows = max(float((k[i] - p[i]).abs().max()) for i in (0, 1))
+    return err_rows, (f"in_win, positions and velocities equal, spilled "
+                      f"rows {spilled}, max|dJ| {err_j:.3g} (max|J| "
+                      f"{scale:.3g}, tol {tol_j:g} relative)")
+
+
+def em_bound_ms(n_rows: int, n_valid: int, shape, block: int):
+    """Least time for one B4 substep: position, velocity and valid read
+    once and position, velocity and in_win written once (42 B a row), the
+    6-channel table read once, J written once, one tile id a block; against
+    ~300 f32 operations a charged row."""
+    nr, nz = shape
+    bytes_moved = (n_rows * (8 + 12 + 1 + 8 + 12 + 1) + nr * nz * (24 + 12)
+                   + (n_rows // block) * 4)
+    return (*bound(bytes_moved, 300 * n_valid), bytes_moved)
+
+
+def sorted_gauss_residual(torch, em, sim):
+    """max |div_Yee E - (rho - mean rho)/eps0| of a sorted EM model."""
+    from fusion_sim_torch.ops.interp import cic_deposit
+
+    st, cfg = sim.state, sim.config
+    w = torch.where(st.valid, cfg.charge / cfg.cell_volume, 0.0)
+    grid_f = torch.tensor(cfg.grid_shape, dtype=torch.float32,
+                          device=st.position.device)
+    rho = cic_deposit(torch.remainder(st.position, grid_f), w,
+                      cfg.grid_shape)
+    rho = rho - rho.mean()
+    return float((em.yee_divergence(cfg, st.e) - rho / cfg.eps0).abs().max())
+
+
+def phase3_em(torch, em, fe, Tiling2D, build_padded_layout, dev,
+              n3: int = 1 << 20):
+    tiling = Tiling2D(**EM_TILING)
+    shape = (512, 512)
+    rng = np.random.default_rng(31)
+    pos = torch.tensor(rng.random((n3, 2), dtype=np.float32) * 512,
+                       device=dev)
+    table = torch.tensor(rng.standard_normal((512, 512, 6),
+                                             dtype=np.float32), device=dev)
+    grid_f = torch.tensor(shape, dtype=torch.float32, device=dev)
+    # heavy spill: drifts of ~8 cells against margin 6 (the deposit
+    # criterion) on positions jittered by ~4 cells after the sort (the
+    # gather criterion); c = 100 keeps the relativistic rows that fast
+    for case, vscale, jitter, rel, c in (
+            ("thermal", 0.05, 0.0, False, 1.0),
+            ("thermal relativistic", 1.5, 0.0, True, 1.0),
+            ("heavy spill", 40.0, 4.0, False, 1.0),
+            ("heavy spill relativistic", 40.0, 4.0, True, 100.0)):
+        cfg = em_config(em, relativistic=rel)
+        vel = torch.tensor(vscale * rng.standard_normal((n3, 3),
+                                                        dtype=np.float32),
+                           device=dev)
+        tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
+            pos, shape, tiling, vel[:, 0], vel[:, 1], vel[:, 2],
+            derive_valid=True)
+        if jitter:
+            pos_p = torch.remainder(
+                pos_p + jitter * torch.tensor(
+                    rng.standard_normal(tuple(pos_p.shape),
+                                        dtype=np.float32), device=dev),
+                grid_f).contiguous()
+        st = em.SortedEMState(pos_p, torch.stack([v0, v1, v2],
+                                                 -1).contiguous(), tid,
+                              valid, None, None, 0, 0, 0)
+        args = em_substep_args(cfg, tiling, table, st)
+        kw = dict(c_light=c, relativistic=rel)
+        _, report = compare_em(torch, fe, args, kw)
+        k_ms = median_ms(torch, lambda: fe.fused_em2d_substep(*args, **kw))
+        p_ms = median_ms(torch, lambda: fe.fused_em2d_substep_plain(
+            *args, **kw), reps=3, warm=1)
+        b_ms, b_by, _ = em_bound_ms(pos_p.shape[0], int(valid.sum()), shape,
+                                    tiling.block)
+        log("3 kernels", f"em2d_substep {case} ({pos_p.shape[0]} rows): "
+                         f"{report}; kernel {k_ms:.4f} ms, plain "
+                         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # small EM runs on the card against the same runs on the CPU: one
+    # carried layout, a seeded wave so B acts from the first step, speeds
+    # that spill past margin 2, 10 steps across two resorts
+    n_small, cells = 16384, 64
+    cfg_s = em_config(em, cells)
+    rng = np.random.default_rng(32)
+    pos_s = (rng.random((n_small, 2)) * cells).astype(np.float32)
+    vel_s = (1.0 * rng.standard_normal((n_small, 3))).astype(np.float32)
+    x = np.arange(cells) * 0.5
+    e0 = np.zeros((cells, cells, 3), np.float32)
+    b0 = np.zeros((cells, cells, 3), np.float32)
+    e0[..., 1] = 0.05 * np.sin(2 * np.pi * x / (cells * 0.5))[:, None]
+    b0[..., 2] = 0.05 * np.sin(2 * np.pi * x / (cells * 0.5))[:, None]
+    for backend in ("xla", "pallas", "fused"):
+        kw = dict(tiling=Tiling2D(16, 16, 256, margin=2), resort_every=4,
+                  spill_capacity=4096, check_spill=False,
+                  gather_backend=backend)
+        cpu = em.SortedElectromagneticPIC(cfg_s, pos_s, vel_s, e=e0, b=b0,
+                                          device="cpu", **kw)
+        blob = {k: (v.numpy() if torch.is_tensor(v) else v)
+                for k, v in cpu.state._asdict().items()}
+        gpu = em.SortedElectromagneticPIC.from_state(cfg_s, blob,
+                                                     device="cuda", **kw)
+        cpu.step(10)
+        gpu.step(10)
+        if gpu.state.spill_dropped or cpu.state.spill_dropped:
+            raise AssertionError(f"small EM run ({backend}) dropped rows")
+        errs = {}
+        for name in ("e", "b"):
+            want = getattr(cpu.state, name)
+            errs[name] = float((getattr(gpu.state, name).cpu() - want)
+                               .abs().max()) / float(want.abs().max())
+            if errs[name] > 1e-4:
+                raise AssertionError(f"small EM run ({backend}) {name}: "
+                                     f"card vs CPU {errs[name]} relative")
+        e_c, e_g = cpu.energies(), gpu.energies()
+        for key in ("kinetic", "field"):
+            if not math.isclose(e_g[key], e_c[key], rel_tol=1e-4):
+                raise AssertionError(f"small EM run ({backend}) {key}: "
+                                     f"card {e_g[key]} vs CPU {e_c[key]}")
+        pc = cpu.state.position[cpu.state.valid].numpy()
+        pg = gpu.state.position[gpu.state.valid].cpu().numpy()
+        dmax = max(float(np.abs(np.sort(pc[:, a]) - np.sort(pg[:, a])).max())
+                   for a in range(2))
+        if pg.shape[0] != n_small or dmax > 1e-3:
+            raise AssertionError(f"small EM run ({backend}): {pg.shape[0]} "
+                                 f"valid rows, positions differ by {dmax}")
+        log("3 kernels", f"small EM run ({backend}, {n_small} particles, "
+                         f"64^2, 10 steps, spill card {gpu.state.spill} / "
+                         f"CPU {cpu.state.spill} rows patched): card vs CPU "
+                         f"E within {errs['e']:.3g}, B within "
+                         f"{errs['b']:.3g} of their scale, kinetic "
+                         f"{e_g['kinetic']:.9g} / {e_c['kinetic']:.9g}, "
+                         f"sorted positions within {dmax:.3g}")
+
+
+def em_sim(torch, em, Tiling2D, n: int, backend: str, resort: int):
+    """The EM rung: positions uniform, velocities 0.05 N(0, 1), seed 0."""
+    rng = np.random.default_rng(0)
+    pos = (rng.random((n, 2)) * 512).astype(np.float32)
+    vel = (0.05 * rng.standard_normal((n, 3))).astype(np.float32)
+    sim = em.SortedElectromagneticPIC(
+        em_config(em), pos, vel, tiling=Tiling2D(**EM_TILING),
+        resort_every=resort, check_spill=False, gather_backend=backend,
+        spill_capacity=16384)
+    torch.cuda.synchronize()
+    return sim
+
+
+def check_em_state(torch, st, n):
+    if st.spill_dropped != 0:
+        raise AssertionError(f"{st.spill_dropped} spilled rows dropped")
+    n_valid = int(st.valid.sum())
+    if n_valid != n:
+        raise AssertionError(f"{n_valid} valid rows, expected {n}")
+    for name in ("position", "velocity", "e", "b"):
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            raise AssertionError(f"state.{name} is not finite")
+
+
+def phase6_em_main(torch, em, fe, Tiling2D, smi, kernel_modules,
+                   n: int = 10_002_432):
+    from fusion_sim_torch.ops import fdtd
+
+    resort = 12
+    t0 = time.perf_counter()
+    sim = em_sim(torch, em, Tiling2D, n, "fused", resort)
+    cfg, tiling = sim.config, sim.tiling
+    rows = sim.state.position.shape[0]
+    log("6 EM", f"set-up {time.perf_counter() - t0:.2f} s ({n} particles, "
+                f"512^2, {rows} layout rows, tile 32 margin 6, resort every "
+                f"{resort}, spill capacity 16384)")
+    r0 = sorted_gauss_residual(torch, em, sim)
+    t0 = time.perf_counter()
+    sim.step(resort)
+    torch.cuda.synchronize()
+    log("6 EM", f"warm window ({resort} steps + resort) "
+                f"{time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernel_modules)
+    rates = run_windows(torch, sim, 2, resort)
+    launches = fe.LAUNCHES
+    steps = 2 * resort
+    if launches != steps:
+        raise AssertionError(f"B4 launches {launches} != steps {steps}")
+    st = sim.state
+    check_em_state(torch, st, n)
+    r1 = sorted_gauss_residual(torch, em, sim)
+    if not r1 - r0 < 5e-3 * max(r0, 1.0):
+        raise AssertionError(f"Gauss residual grew from {r0} to {r1}")
+    rate = float(np.median(rates))
+    en = sim.energies()
+    log("6 EM", f"{smi}: {steps} timed steps, windows "
+                f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, median "
+                f"{rate:.3f} steps/s = {rate * n:.4g} particle updates/s; "
+                f"B4 launches {launches}; spill patched {st.spill}, dropped "
+                f"{st.spill_dropped}; Gauss residual {r0:.6g} -> {r1:.6g} "
+                f"over {st.step} steps; field energy {en['field']:.6g}, "
+                f"kinetic {en['kinetic']:.6g}; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # kernel vs plain and bound, on the main path's own inputs
+    table = fdtd.center_fields(st.e, st.b, fdtd.E_OFFSETS_2D,
+                               fdtd.B_OFFSETS_2D)
+    args = em_substep_args(cfg, tiling, table, st)
+    err, report = compare_em(torch, fe, args, {})
+    k_ms = median_ms(torch, lambda: fe.fused_em2d_substep(*args))
+    p_ms = median_ms(torch, lambda: fe.fused_em2d_substep_plain(*args),
+                     reps=3, warm=1)
+    b_ms, b_by, b_bytes = em_bound_ms(rows, n, cfg.grid_shape, tiling.block)
+    log("6 EM", f"em2d_substep on the main path's inputs ({rows} rows): "
+                f"{report}; kernel {k_ms:.4f} ms "
+                f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective), "
+                f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    c_ms = median_ms(torch, lambda: fdtd.center_fields(
+        st.e, st.b, fdtd.E_OFFSETS_2D, fdtd.B_OFFSETS_2D))
+    j = torch.zeros_like(st.e)
+    y_ms = median_ms(torch, lambda: em.yee_update(cfg, st.e, st.b, j))
+    log("6 EM", f"center_fields {c_ms:.4f} ms, Yee update {y_ms:.4f} ms "
+                f"(512^2)")
+    profile_window(torch, "6 EM", f"{resort} steps + resort",
+                   lambda: sim.step(resort))
+    return {
+        "name": "B4:em2d_substep", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/em2d_substep.cu",
+        "replaces": "fusion_sim_tpu/ops/pallas_em.py:256",
+        "launches": launches, "max_abs_err": err, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def phase6b_em_pallas(torch, em, sg, Tiling2D, smi, kernel_modules,
+                      n: int = 1 << 20):
+    resort = 12
+    t0 = time.perf_counter()
+    sim = em_sim(torch, em, Tiling2D, n, "pallas", resort)
+    rows = sim.state.position.shape[0]
+    sim.step(resort)
+    torch.cuda.synchronize()
+    log("6b EM pallas", f"set-up and warm window "
+                        f"{time.perf_counter() - t0:.2f} s ({n} particles, "
+                        f"{rows} layout rows)")
+    zero_counts(kernel_modules)
+    rates = run_windows(torch, sim, 2, resort)
+    launches = sg.LAUNCHES
+    steps = 2 * resort
+    if launches != steps:
+        raise AssertionError(f"B3 launches {launches} != steps {steps}")
+    check_em_state(torch, sim.state, n)
+    rate = float(np.median(rates))
+    log("6b EM pallas", f"{smi}: {steps} timed steps, windows "
+                        f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, "
+                        f"median {rate:.3f} steps/s = {rate * n:.4g} "
+                        f"particle updates/s; B3 launches {launches} (cic, 6 "
+                        f"channels); spill patched {sim.state.spill}, "
+                        f"dropped {sim.state.spill_dropped}")
+    # kernel vs plain and bound, on this route's own inputs
+    from fusion_sim_torch.ops import fdtd
+    from fusion_sim_torch.ops.sorted_deposit import gather_sorted_2d
+
+    st, cfg, tiling = sim.state, sim.config, sim.tiling
+    table = fdtd.center_fields(st.e, st.b, fdtd.E_OFFSETS_2D,
+                               fdtd.B_OFFSETS_2D)
+    args = (table, st.position, st.tile_id, cfg.grid_shape, tiling, "cic")
+    err, report = compare_gather(torch, sg, args, st.valid)
+    if err != 0.0:
+        raise AssertionError(f"B3 cic C=6 differs from its plain version by "
+                             f"{err} on the EM route's inputs")
+    k_val, k_inw = sg.gather_sorted_2d_window(*args)
+    x_val, x_inw = gather_sorted_2d(*args[:5])
+    rows_in = st.valid & k_inw
+    err_x = float((k_val - x_val)[rows_in].abs().max())
+    scale = float(x_val[rows_in].abs().max())
+    # gather_sorted_2d takes the weights from x - floor(x), the kernel from
+    # the window coordinate, which rounds to its own ulp (3.8e-6 cells at
+    # l ~ 44): 1e-5 of the values' scale, as the CPU tests hold the two
+    if not bool((k_inw == x_inw).all()) or not err_x <= 1e-5 * scale:
+        raise AssertionError(f"B3 cic C=6 against gather_sorted_2d: in_win "
+                             f"differs or values differ by {err_x} (scale "
+                             f"{scale})")
+    k_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window(*args))
+    p_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window_plain(*args),
+                     reps=5, warm=1)
+    b_ms, b_by, b_bytes = gather_bound_ms(rows, 6, cfg.grid_shape,
+                                          tiling.block, "cic")
+    log("6b EM pallas", f"gather2d cic C=6 on the route's inputs ({rows} "
+                        f"rows, tiling 32x32 margin 6): {report}; against "
+                        f"gather_sorted_2d in_win equal, max|dvalue| "
+                        f"{err_x:.3g} (scale {scale:.3g}, tol 1e-5 relative);"
+                        f" kernel {k_ms:.4f} ms "
+                        f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s "
+                        f"effective), plain {p_ms:.4f} ms, bound {b_ms:.4f} "
+                        f"ms ({b_by})")
+    profile_window(torch, "6b EM pallas", f"{resort} steps + resort",
+                   lambda: sim.step(resort))
+    return {
+        "name": "B3:gather2d (EM route, cic C=6)", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/gather2d.cu",
+        "replaces": "fusion_sim_tpu/ops/pallas_gather.py:98",
+        "launches": launches, "max_abs_err": err, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
 def main() -> None:
     try:
         import torch
@@ -694,10 +1050,12 @@ def main() -> None:
     try:
         import fusion_sim_torch
         from fusion_sim_torch import scenarios as sc
+        from fusion_sim_torch.models import electromagnetic as em
         from fusion_sim_torch.models import electrostatic as es
         from fusion_sim_torch.models import pusher as pm
         from fusion_sim_torch.models import pusher_sorted as ps
         from fusion_sim_torch.ops import _build
+        from fusion_sim_torch.ops import fused_em as fe
         from fusion_sim_torch.ops import fused_pic as fp
         from fusion_sim_torch.ops import fused_pusher as fpu
         from fusion_sim_torch.ops import sorted_gather as sg
@@ -738,10 +1096,11 @@ def main() -> None:
     tiling = Tiling2D(tile_r=32, tile_z=32, block=1024, margin=10)
     phase3_es(torch, es, fp, Tiling2D, build_padded_layout, dev, tiling)
     phase3_pusher(torch, pm, ps, sc, fpu, sg, Tiling2D, dev)
+    phase3_em(torch, em, fe, Tiling2D, build_padded_layout, dev)
     log("3 kernels", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the ES main path ----------------------------------------------------
-    kernel_modules = (fp, fpu, sg)
+    kernel_modules = (fp, fpu, sg, fe)
     b1 = phase4_es_main(torch, es, fp, dev, tiling, smi, kernel_modules)
     torch.cuda.empty_cache()
     log("4 ES", f"done at {time.perf_counter() - t_start:.1f} s")
@@ -752,9 +1111,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     log("5 pusher", f"done at {time.perf_counter() - t_start:.1f} s")
     b3 = phase5b_pallas(torch, pm, sc, sg, Tiling2D, smi, kernel_modules)
+    torch.cuda.empty_cache()
     log("5b pallas", f"done at {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [b1, b2, b3]}), flush=True)
+    # -- 6. the EM main path at full size, 6b. its pallas route -----------------
+    b4 = phase6_em_main(torch, em, fe, Tiling2D, smi, kernel_modules)
+    torch.cuda.empty_cache()
+    log("6 EM", f"done at {time.perf_counter() - t_start:.1f} s")
+    b3_em = phase6b_em_pallas(torch, em, sg, Tiling2D, smi, kernel_modules)
+    log("6b EM pallas", f"done at {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": [b1, b2, b3, b4, b3_em]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,11 +13,14 @@ Ported so far:
   layout and its windowed gathers, the fused ES substep (kernel B1); the
   pusher's Boris rotation, field construction, inverse-CDF sampling,
   drift/sink/respawn, moment deposit, and its fused half-step (kernel B2)
-  and windowed gather (kernel B3).
+  and windowed gather (kernel B3); Yee FDTD updates, Esirkepov current
+  deposition (plain and tile-sorted) and the fused EM substep (kernel B4).
 * ``models`` — ``electrostatic``: ``ElectrostaticPIC`` and
   ``SortedElectrostaticPIC(backend='pallas')``; ``pusher``:
   ``CylindricalParticlePusher`` (grid-parity path and the tile-sorted path,
-  backends xla / pallas / fused).
+  backends xla / pallas / fused); ``electromagnetic``:
+  ``ElectromagneticPIC``, ``weibel`` and ``SortedElectromagneticPIC``
+  (gather backends xla / pallas / fused).
 * ``scenarios``, ``constants``, ``config``, ``utils.render``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``

@@ -11,7 +11,8 @@ The reference deposits with one-hot digit matmuls per block and folds
 tile windows with dense rolls (TPU forms).  Here ``deposit_sorted_2d``
 keeps the contract (same window criterion, same spill mask) and deposits
 the in-window rows straight onto the grid, which is the same sum;
-``gather_sorted_2d`` reads the window cells straight from the grid.
+``gather_sorted_2d`` reads the window cells straight from the grid, and
+``esirkepov_sorted_2d`` adds each row's stencil onto the wrapped grid.
 ``fold_tile_windows``/``extract_tile_windows`` keep their dense-roll form.
 """
 
@@ -22,6 +23,7 @@ import math
 
 import torch
 
+from .esirkepov import esirkepov_deposit_2d, stencil_base
 from .interp import cic_deposit_packed
 
 _NOT_YET = ("is not ported yet (ROADMAP.md Queue A: item 5, repair/eager "
@@ -225,6 +227,40 @@ def gather_sorted_2d(grid: torch.Tensor, position: torch.Tensor,
                + ar1 * (az0 * flat[gi1 * nz + gj]
                         + az1 * flat[gi1 * nz + gj1]))
     return out.reshape(n, *channels), in_win
+
+
+def esirkepov_sorted_2d(x0: torch.Tensor, x1: torch.Tensor,
+                        vz: torch.Tensor, charge, tile_id: torch.Tensor,
+                        dt: float, shape: tuple[int, int],
+                        cell_size: tuple[float, float], tiling: Tiling2D
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Charge-conserving current deposition for tile-sorted particles;
+    returns ``(j_grid (nr, nz, 3), spill_count, spill_mask)``.
+
+    ``x1`` is unwrapped (x0 plus the drift).  A row is in its window when
+    its wrapped stencil base, floor(min(x0, x1)) per axis, lies at most
+    ``w - 3`` cells from the block's window origin on both axes; other rows
+    deposit nothing and, if they carry charge, count as spill.  ``charge``
+    must be 0 on filler rows.  The reference contracts separable factors
+    per block with one-hot window matmuls and folds the windows; the
+    in-window rows' ``esirkepov_deposit_2d`` on the wrapped grid is the
+    same sum."""
+    nr, nz = shape
+    wr, wz = tiling.window()
+    n = x0.shape[0]
+    if n % tiling.block:
+        raise ValueError(f"N={n} not a multiple of block={tiling.block}")
+    q = torch.as_tensor(charge, dtype=torch.float32,
+                        device=x0.device).expand(n)
+    otr, otz = (o.repeat_interleave(tiling.block)
+                for o in window_origins(tile_id, shape, tiling))
+    dbr = torch.remainder(stencil_base(x0[:, 0], x1[:, 0]) - otr, nr)
+    dbz = torch.remainder(stencil_base(x0[:, 1], x1[:, 1]) - otz, nz)
+    in_win = (dbr <= wr - 3) & (dbz <= wz - 3)
+    j = esirkepov_deposit_2d(x0, x1, vz, torch.where(in_win, q, 0.0), dt,
+                             shape, cell_size)
+    spill_mask = (~in_win) & (q != 0)
+    return j, spill_mask.sum(), spill_mask
 
 
 def fold_tile_windows(tw: torch.Tensor, shape: tuple[int, int],

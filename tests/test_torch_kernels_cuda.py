@@ -150,6 +150,66 @@ def test_gather2d_kernel_matches_plain(cuda, mode, channels):
     assert int((~plain[1] & valid).sum()) > 100, "needs out-of-window rows"
 
 
+def _em_case(cuda, vscale, shape=(64, 128), n=8192, seed=6):
+    from fusion_sim_torch.ops.sorted_deposit import Tiling2D
+
+    tiling = Tiling2D(tile_r=16, tile_z=16, block=128, margin=2)
+    rng = np.random.default_rng(seed)
+    pos = torch.tensor(rng.random((n, 2)) * np.array(shape),
+                       dtype=torch.float32, device=cuda)
+    vel = torch.tensor(vscale * rng.standard_normal((n, 3)),
+                       dtype=torch.float32, device=cuda)
+    table = torch.tensor(rng.standard_normal((*shape, 6)),
+                         dtype=torch.float32, device=cuda)
+    tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
+        pos, shape, tiling, vel[:, 0], vel[:, 1], vel[:, 2],
+        derive_valid=True)
+    return (table, pos_p, torch.stack([v0, v1, v2], -1).contiguous(), valid,
+            tid, shape, tiling, 0.1, 0.1, (0.5, 0.8), -0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vscale,relativistic,c_light", [
+    (0.1, False, 1.0), (1.5, True, 1.0), (12.0, False, 1.0),
+    (25.0, True, 60.0)])       # thermal, relativistic, heavy spill (both)
+def test_fused_em2d_substep_kernel_matches_plain(cuda, vscale, relativistic,
+                                                 c_light):
+    """Built with -fmad=false and the plain version's operation order:
+    positions, velocities and in_win bit for bit; J differs only by the
+    order of its atomic sums, 1e-5 of max|J|."""
+    from fusion_sim_torch.ops import fused_em
+
+    args = _em_case(cuda, vscale)
+    kw = dict(c_light=c_light, relativistic=relativistic)
+    before = fused_em.LAUNCHES
+    got = fused_em.fused_em2d_substep(*args, **kw)
+    assert fused_em.LAUNCHES == before + 1
+    plain = fused_em.fused_em2d_substep_plain(*args, **kw)
+    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
+        assert torch.equal(got[i], plain[i]), name
+    scale = float(plain[2].abs().max())
+    assert float((got[2] - plain[2]).abs().max()) <= 1e-5 * scale
+    if vscale > 10:
+        assert int((~plain[3] & args[3]).sum()) > 100, "needs actual spill"
+
+
+@pytest.mark.cuda
+def test_fused_em2d_substep_kernel_rejects_bad_inputs(cuda):
+    from fusion_sim_torch.ops import fused_em
+
+    args = list(_em_case(cuda, 0.1, n=256))
+    for i, name, bad, exc in (
+            (0, "table", args[0].cpu(), ValueError),
+            (1, "position", args[1].t().contiguous().t(), ValueError),
+            (2, "velocity", args[2][:, :2].contiguous(), ValueError),
+            (3, "valid", args[3].float(), TypeError),
+            (4, "tile_id", args[4].long(), TypeError)):
+        broken = list(args)
+        broken[i] = bad
+        with pytest.raises(exc, match=name):
+            fused_em.fused_em2d_substep(*broken)
+
+
 @pytest.mark.cuda
 def test_pusher_kernels_reject_bad_inputs(cuda):
     from fusion_sim_torch.ops import fused_pusher, sorted_gather

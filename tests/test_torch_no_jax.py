@@ -51,6 +51,7 @@ def test_guard_sees_a_forbidden_import(tmp_path):
 
 def test_default_device_is_cuda():
     from fusion_sim_torch._device import resolve_device
+    from fusion_sim_torch.models import electromagnetic as em
     from fusion_sim_torch.models import electrostatic as es
     from fusion_sim_torch.models.pusher import CylindricalParticlePusher
     from fusion_sim_torch.ops.sorted_deposit import Tiling2D
@@ -73,6 +74,17 @@ def test_default_device_is_cuda():
                                   tiling=Tiling2D(16, 16, 256, margin=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         CylindricalParticlePusher(spec)
+    em_config = em.EMConfig(grid_shape=(32, 32), cell_size=(0.5, 0.5),
+                            dt=0.1, charge=-0.01, mass=0.01)
+    vel3 = np.zeros((256, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        em.ElectromagneticPIC(em_config, pos, vel3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        em.SortedElectromagneticPIC(em_config, pos, vel3,
+                                    gather_backend="fused",
+                                    tiling=Tiling2D(16, 16, 256, margin=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        em.weibel(n_particles=1024, n_cells=32, sorted_layout=True)
     assert resolve_device("cpu").type == "cpu"
     sim = CylindricalParticlePusher(spec, device="cpu")
     apply_default_scenario(sim)
