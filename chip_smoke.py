@@ -19,7 +19,11 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                non-relativistic and relativistic; then small ES, pusher
                (backends fused and pallas) and EM (gather backends xla,
                pallas and fused) runs on the card against the same runs on
-               the CPU;
+               the CPU; B5 (es3d_substep) and B6 (em3d_substep) at the 3D
+               tiling (8^3, block 512, margin 2) on a 64^3 grid, thermal
+               and heavy-spill inputs (B6 also relativistic, and both
+               forms of its field read), then small 3D ES and EM runs on
+               the card against the CPU across resorts;
 4. ES main path — ``SortedElectrostaticPIC(backend='pallas')`` at the
                headline size (9,999,360 particles, 512^2, tile 32, margin
                10, resort every 20): one warm window, two timed windows;
@@ -48,7 +52,21 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                ``gather_backend='pallas'``: B3 launches (cic, 6 channels)
                and drops checked, steps/s printed, B3 held bit for bit
                against its plain version and timed against its bound on the
-               route's own inputs, one profiled window.
+               route's own inputs, one profiled window;
+7. 3D ES main path — ``SortedElectrostaticPIC(backend='pallas')`` with a
+               3D config at the 3D rung's size (29,997,056 particles,
+               128^3, L = 2 pi, dt 0.05, ``Tiling3D((8, 8, 8), 512,
+               margin=2)``, resort every 6): one warm window, three timed
+               windows; B5 launches, drops, validity, finiteness and charge
+               checked, B5 timed against its plain version and its bound on
+               the path's own inputs, one profiled window;
+8. 3D EM main path — ``SortedElectromagneticPIC(gather_backend='fused')``
+               with a 3D config at the same size (cell 0.5, dt 0.1, charge
+               -0.01, mass 0.01, centered gather, the same tiling, resort
+               every 6): one warm window, three timed windows; B6 launches,
+               drops, validity, finiteness and Gauss's law checked, B6
+               timed against its plain version and its bound on the path's
+               own inputs, one profiled window.
 
 The line before the last lists the kernels as JSON (B3 twice: once for
 each path that runs it); the last line is the
@@ -718,27 +736,26 @@ def em_substep_args(cfg, tiling, table, st):
             cfg.dt, cfg.cell_size, cfg.charge)
 
 
-def compare_em(torch, fe, args, kw, tol_j=1e-5):
-    """B4 vs plain on the same inputs: in_win, positions and velocities bit
-    for bit on every row, J within ``tol_j`` of max|J| (atomic summation
-    order).  Returns (max_abs_err over rows, report)."""
-    k = fe.fused_em2d_substep(*args, **kw)
-    p = fe.fused_em2d_substep_plain(*args, **kw)
+def compare_fused(torch, label, k, p, charged, grid_name, tol=1e-5):
+    """A fused substep's outputs ``k`` against its plain version's ``p``:
+    in_win, positions and velocities bit for bit on every row, the
+    deposited grid within ``tol`` of its max (atomic summation order).
+    Returns (max_abs_err over rows, report)."""
     torch.cuda.synchronize()
-    valid = args[3]
     for name, i in (("in_win", 3), ("position", 0), ("velocity", 1)):
         bad = int((k[i] != p[i]).sum())
         if bad:
-            raise AssertionError(f"B4 {name} differs on {bad} entries")
-    err_j = float((k[2] - p[2]).abs().max())
+            raise AssertionError(f"{label} {name} differs on {bad} entries")
+    err = float((k[2] - p[2]).abs().max())
     scale = float(p[2].abs().max())
-    if not err_j <= tol_j * scale:
-        raise AssertionError(f"B4 J differs: {err_j} > {tol_j} * {scale}")
-    spilled = int((~p[3] & valid).sum())
+    if not err <= tol * scale:
+        raise AssertionError(f"{label} {grid_name} differs: {err} > {tol} * "
+                             f"{scale}")
+    spilled = int((~p[3] & charged).sum())
     err_rows = max(float((k[i] - p[i]).abs().max()) for i in (0, 1))
     return err_rows, (f"in_win, positions and velocities equal, spilled "
-                      f"rows {spilled}, max|dJ| {err_j:.3g} (max|J| "
-                      f"{scale:.3g}, tol {tol_j:g} relative)")
+                      f"rows {spilled}, max|d{grid_name}| {err:.3g} "
+                      f"(max|{grid_name}| {scale:.3g}, tol {tol:g} relative)")
 
 
 def em_bound_ms(n_rows: int, n_valid: int, shape, block: int):
@@ -802,7 +819,9 @@ def phase3_em(torch, em, fe, Tiling2D, build_padded_layout, dev,
                               valid, None, None, 0, 0, 0)
         args = em_substep_args(cfg, tiling, table, st)
         kw = dict(c_light=c, relativistic=rel)
-        _, report = compare_em(torch, fe, args, kw)
+        _, report = compare_fused(
+            torch, "B4", fe.fused_em2d_substep(*args, **kw),
+            fe.fused_em2d_substep_plain(*args, **kw), args[3], "J")
         k_ms = median_ms(torch, lambda: fe.fused_em2d_substep(*args, **kw))
         p_ms = median_ms(torch, lambda: fe.fused_em2d_substep_plain(
             *args, **kw), reps=3, warm=1)
@@ -938,7 +957,9 @@ def phase6_em_main(torch, em, fe, Tiling2D, smi, kernel_modules,
     table = fdtd.center_fields(st.e, st.b, fdtd.E_OFFSETS_2D,
                                fdtd.B_OFFSETS_2D)
     args = em_substep_args(cfg, tiling, table, st)
-    err, report = compare_em(torch, fe, args, {})
+    err, report = compare_fused(
+        torch, "B4", fe.fused_em2d_substep(*args),
+        fe.fused_em2d_substep_plain(*args), args[3], "J")
     k_ms = median_ms(torch, lambda: fe.fused_em2d_substep(*args))
     p_ms = median_ms(torch, lambda: fe.fused_em2d_substep_plain(*args),
                      reps=3, warm=1)
@@ -1039,6 +1060,384 @@ def phase6b_em_pallas(torch, em, sg, Tiling2D, smi, kernel_modules,
     }
 
 
+# -- 3D (kernels B5, B6) ---------------------------------------------------------
+
+TILING_3D = dict(tile=(8, 8, 8), block=512, margin=2)
+N_3D = 29_997_056               # ~3e7, a multiple of the block
+
+
+def es3d_config(es, n: int, cells: int = 128):
+    """examples/bench_3d.py's ES configuration."""
+    length = 2 * np.pi
+    d = length / cells
+    vol = length ** 3
+    return es.ESConfig(grid_shape=(cells,) * 3, cell_size=(d,) * 3, dt=0.05,
+                       charge=-vol / n, mass=vol / n)
+
+
+def em3d_config(em, cells: int = 128, **kw):
+    """examples/bench_3d.py's EM configuration."""
+    d = 0.5
+    return em.EMConfig(grid_shape=(cells,) * 3, cell_size=(d,) * 3,
+                       dt=0.2 * d, charge=-0.01, mass=0.01,
+                       field_gather="centered", **kw)
+
+
+def es3d_substep_args(torch, cfg, tiling, e_grid, st):
+    w = torch.where(st.valid, cfg.charge / cfg.cell_volume, 0.0).to(
+        torch.float32)
+    return (e_grid, st.position, st.velocity, w, st.tile_id, cfg.grid_shape,
+            tiling, cfg.charge / cfg.mass * cfg.dt,
+            *(cfg.dt / d for d in cfg.cell_size))
+
+
+def es3d_bound_ms(n_rows: int, n_valid: int, shape, block: int):
+    """Least time for one B5 substep: position, velocity and weight read
+    once and position, velocity and in_win written once (53 B a row), the
+    3-channel E grid read once, rho written once, one tile id a block;
+    against ~110 f32 operations a weighted row."""
+    cells = math.prod(shape)
+    bytes_moved = (n_rows * (12 + 12 + 4 + 12 + 12 + 1) + cells * (12 + 4)
+                   + (n_rows // block) * 4)
+    return (*bound(bytes_moved, 110 * n_valid), bytes_moved)
+
+
+def em3d_bound_ms(n_rows: int, n_valid: int, shape, block: int):
+    """Least time for one B6 substep: position, velocity and valid read
+    once and position, velocity and in_win written once (50 B a row), the
+    6-channel table read once, J written once, one tile id a block; against
+    ~700 f32 operations a charged row (a 27-node stencil)."""
+    cells = math.prod(shape)
+    bytes_moved = (n_rows * (12 + 12 + 1 + 12 + 12 + 1) + cells * (24 + 12)
+                   + (n_rows // block) * 4)
+    return (*bound(bytes_moved, 700 * n_valid), bytes_moved)
+
+
+def phase3_3d(torch, es, em, f3, fe3, Tiling3D, build_padded_layout, dev,
+              n3: int = 1 << 20, cells: int = 64):
+    tiling = Tiling3D(**TILING_3D)
+    shape = (cells,) * 3
+    rng = np.random.default_rng(41)
+    pos = torch.tensor(rng.random((n3, 3), dtype=np.float32) * cells,
+                       device=dev)
+    grid_f = torch.tensor(shape, dtype=torch.float32, device=dev)
+
+    def layout(vscale, jitter):
+        vel = torch.tensor(vscale * rng.standard_normal((n3, 3),
+                                                        dtype=np.float32),
+                           device=dev)
+        tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
+            pos, shape, tiling, vel[:, 0], vel[:, 1], vel[:, 2],
+            derive_valid=True)
+        if jitter:
+            pos_p = torch.remainder(
+                pos_p + jitter * torch.tensor(
+                    rng.standard_normal(tuple(pos_p.shape),
+                                        dtype=np.float32), device=dev),
+                grid_f).contiguous()
+        return (pos_p, torch.stack([v0, v1, v2], -1).contiguous(), tid,
+                valid)
+
+    # B5: heavy spill = drifts of ~1.5 cells against margin 2 (the deposit
+    # criterion) on positions jittered by ~1 cell after the sort (the
+    # gather criterion)
+    cfg = es3d_config(es, n3, cells)
+    e_grid = torch.tensor(rng.standard_normal((*shape, 3), dtype=np.float32),
+                          device=dev)
+    for case, vscale, jitter in (("thermal", 0.05, 0.0),
+                                 ("heavy spill", 3.0, 1.0)):
+        pos_p, vel_p, tid, valid = layout(vscale, jitter)
+        st = es.SortedESState(pos_p, vel_p, tid, valid, 0, 0, 0)
+        args = es3d_substep_args(torch, cfg, tiling, e_grid, st)
+        _, report = compare_fused(
+            torch, "B5", f3.fused_es3d_substep(*args),
+            f3.fused_es3d_substep_plain(*args), args[3] != 0, "rho")
+        k_ms = median_ms(torch, lambda: f3.fused_es3d_substep(*args))
+        p_ms = median_ms(torch, lambda: f3.fused_es3d_substep_plain(*args),
+                         reps=3, warm=1)
+        b_ms, b_by, _ = es3d_bound_ms(pos_p.shape[0], int(valid.sum()),
+                                      shape, tiling.block)
+        log("3 kernels", f"es3d_substep {case} ({pos_p.shape[0]} rows, "
+                         f"{cells}^3): {report}; kernel {k_ms:.4f} ms, plain "
+                         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # B6: heavy spill = rows that move ~1.6 cells a step (faster than a
+    # cell, so the deposit walks more than 3 nodes an axis) from positions
+    # jittered by ~1 cell; c = 100 keeps the relativistic rows that fast
+    table = torch.tensor(rng.standard_normal((*shape, 6), dtype=np.float32),
+                         device=dev)
+    for case, vscale, jitter, rel, c in (
+            ("thermal", 0.05, 0.0, False, 1.0),
+            ("thermal relativistic", 1.5, 0.0, True, 1.0),
+            ("heavy spill", 8.0, 1.0, False, 1.0),
+            ("heavy spill relativistic", 8.0, 1.0, True, 100.0)):
+        cfg = em3d_config(em, cells, relativistic=rel)
+        pos_p, vel_p, tid, valid = layout(vscale, jitter)
+        st = em.SortedEMState(pos_p, vel_p, tid, valid, None, None, 0, 0, 0)
+        args = em_substep_args(cfg, tiling, table, st)
+        kw = dict(c_light=c, relativistic=rel)
+        _, report = compare_fused(
+            torch, "B6", fe3.fused_em3d_substep(*args, **kw),
+            fe3.fused_em3d_substep_plain(*args, **kw), args[3], "J")
+        k_ms = median_ms(torch, lambda: fe3.fused_em3d_substep(*args, **kw))
+        p_ms = median_ms(torch, lambda: fe3.fused_em3d_substep_plain(
+            *args, **kw), reps=3, warm=1)
+        b_ms, b_by, _ = em3d_bound_ms(pos_p.shape[0], int(valid.sum()),
+                                      shape, tiling.block)
+        log("3 kernels", f"em3d_substep {case} ({pos_p.shape[0]} rows, "
+                         f"{cells}^3): {report}; kernel {k_ms:.4f} ms, plain "
+                         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # small 3D runs on the card against the same runs on the CPU: one
+    # carried layout, speeds that spill past margin 1, 7 steps across two
+    # resorts
+    n_small, cells = 8192, 16
+    small = dict(tiling=Tiling3D((8, 8, 8), 128, margin=1), resort_every=3,
+                 spill_capacity=4096, check_spill=False)
+    rng = np.random.default_rng(42)
+    pos_s = (rng.random((n_small, 3)) * cells).astype(np.float32)
+
+    def against_cpu(label, cpu, from_state, names, tol):
+        blob = {k: (v.numpy() if torch.is_tensor(v) else v)
+                for k, v in cpu.state._asdict().items() if v is not None}
+        gpu = from_state(blob)
+        cpu.step(7)
+        gpu.step(7)
+        if gpu.state.spill_dropped or cpu.state.spill_dropped:
+            raise AssertionError(f"{label} dropped rows")
+        if not min(gpu.state.spill, cpu.state.spill) > 0:
+            raise AssertionError(f"{label}: no row was patched")
+        errs = {}
+        for name in names:
+            want = getattr(cpu.state, name)
+            errs[name] = float((getattr(gpu.state, name).cpu() - want)
+                               .abs().max()) / float(want.abs().max())
+            if errs[name] > tol:
+                raise AssertionError(f"{label} {name}: card vs CPU "
+                                     f"{errs[name]} relative")
+        e_c, e_g = cpu.energies(), gpu.energies()
+        for key in ("kinetic", "field"):
+            if not math.isclose(e_g[key], e_c[key], rel_tol=1e-4):
+                raise AssertionError(f"{label} {key}: card {e_g[key]} vs "
+                                     f"CPU {e_c[key]}")
+        pc = cpu.state.position[cpu.state.valid].numpy()
+        pg = gpu.state.position[gpu.state.valid].cpu().numpy()
+        dmax = max(float(np.abs(np.sort(pc[:, a]) - np.sort(pg[:, a])).max())
+                   for a in range(3))
+        if pg.shape[0] != n_small or dmax > 1e-3:
+            raise AssertionError(f"{label}: {pg.shape[0]} valid rows, "
+                                 f"positions differ by {dmax}")
+        log("3 kernels", f"{label} ({n_small} particles, 16^3, 7 steps, "
+                         f"spill card {gpu.state.spill} / CPU "
+                         f"{cpu.state.spill} rows patched): card vs CPU "
+                         + ", ".join(f"{k} within {v:.3g}"
+                                     for k, v in errs.items())
+                         + f" of their scale, kinetic {e_g['kinetic']:.9g} /"
+                         f" {e_c['kinetic']:.9g}, sorted positions within "
+                         f"{dmax:.3g}")
+
+    cfg_s = es3d_config(es, n_small, cells)
+    vel_s = (3.0 * rng.standard_normal((n_small, 3))).astype(np.float32)
+    kw = dict(small, backend="pallas", spill_tiers=(64, 512))
+    against_cpu("small 3D ES run",
+                es.SortedElectrostaticPIC(cfg_s, pos_s, vel_s, device="cpu",
+                                          **kw),
+                lambda blob: es.SortedElectrostaticPIC.from_state(
+                    cfg_s, blob, device="cuda", **kw), ("rho",), 1e-4)
+    cfg_s = em3d_config(em, cells)
+    vel_s = np.clip(1.5 * rng.standard_normal((n_small, 3)), -4.5,
+                    4.5).astype(np.float32)
+    x = np.arange(cells) * 0.5
+    e0 = np.zeros((cells,) * 3 + (3,), np.float32)
+    b0 = np.zeros((cells,) * 3 + (3,), np.float32)
+    e0[..., 1] = 0.05 * np.sin(2 * np.pi * x / (cells * 0.5))[:, None, None]
+    b0[..., 2] = 0.05 * np.sin(2 * np.pi * x / (cells * 0.5))[:, None, None]
+    for backend in ("xla", "pallas", "fused"):
+        kw = dict(small, gather_backend=backend)
+        against_cpu(f"small 3D EM run ({backend})",
+                    em.SortedElectromagneticPIC(cfg_s, pos_s, vel_s, e=e0,
+                                                b=b0, device="cpu", **kw),
+                    lambda blob: em.SortedElectromagneticPIC.from_state(
+                        cfg_s, blob, device="cuda", **kw), ("e", "b"), 1e-4)
+
+
+def rung_3d_particles(n: int, cells: int = 128):
+    """examples/bench_3d.py's particles: positions uniform, then velocities
+    0.05 N(0, 1), from one numpy generator seeded 0."""
+    rng = np.random.default_rng(0)
+    pos = (rng.random((n, 3)) * cells).astype(np.float32)
+    vel = (0.05 * rng.standard_normal((n, 3))).astype(np.float32)
+    return pos, vel
+
+
+def phase7_es3d_main(torch, es, f3, Tiling3D, smi, kernel_modules,
+                     n: int = N_3D, spill_capacity: int = 16384):
+    resort, windows = 6, 3
+    tiling = Tiling3D(**TILING_3D)
+    cfg = es3d_config(es, n)
+    t0 = time.perf_counter()
+    pos, vel = rung_3d_particles(n)
+    sim = es.SortedElectrostaticPIC(
+        cfg, pos, vel, tiling=tiling, backend="pallas", resort_every=resort,
+        spill_capacity=spill_capacity, check_spill=False)
+    del pos, vel
+    torch.cuda.synchronize()
+    rows = sim.state.position.shape[0]
+    log("7 ES 3D", f"set-up {time.perf_counter() - t0:.2f} s ({n} particles, "
+                   f"128^3, {rows} layout rows, tile 8^3 block 512 margin 2, "
+                   f"resort every {resort}, spill capacity {spill_capacity})")
+    t0 = time.perf_counter()
+    sim.step(resort)
+    torch.cuda.synchronize()
+    log("7 ES 3D", f"warm window ({resort} steps + resort) "
+                   f"{time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernel_modules)
+    rates = run_windows(torch, sim, windows, resort)
+    launches = f3.LAUNCHES
+    steps = windows * resort
+    if launches != steps:
+        raise AssertionError(f"B5 launches {launches} != steps {steps}")
+    st = sim.state
+    if st.spill_dropped != 0:
+        raise AssertionError(f"{st.spill_dropped} spilled rows dropped")
+    for name in ("position", "velocity", "rho"):
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            raise AssertionError(f"state.{name} is not finite")
+    n_valid = int(st.valid.sum())
+    if n_valid != n:
+        raise AssertionError(f"{n_valid} valid rows, expected {n}")
+    w0 = cfg.charge / cfg.cell_volume
+    q = float(st.rho.double().sum())
+    rel = abs(q - n * w0) / abs(n * w0)
+    if rel > 1e-5:
+        raise AssertionError(f"charge {q} vs n*w0 {n * w0}: {rel:.3g} "
+                             f"relative")
+    rate = float(np.median(rates))
+    log("7 ES 3D", f"{smi}: {steps} timed steps, windows "
+                   f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, median "
+                   f"{rate:.3f} steps/s = {rate * n:.4g} particle updates/s; "
+                   f"B5 launches {launches}; spill patched {st.spill}, "
+                   f"dropped {st.spill_dropped} (capacity {spill_capacity}); "
+                   f"charge error {rel:.3g} relative; peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # kernel vs plain and bound, on the main path's own inputs
+    rho = st.rho - torch.sum(st.rho) / math.prod(cfg.grid_shape)
+    _, e_grid = es.solve_fields(cfg, rho)
+    args = es3d_substep_args(torch, cfg, tiling, e_grid, st)
+    err, report = compare_fused(
+        torch, "B5", f3.fused_es3d_substep(*args),
+        f3.fused_es3d_substep_plain(*args), args[3] != 0, "rho")
+    k_ms = median_ms(torch, lambda: f3.fused_es3d_substep(*args))
+    p_ms = median_ms(torch, lambda: f3.fused_es3d_substep_plain(*args),
+                     reps=3, warm=1)
+    b_ms, b_by, b_bytes = es3d_bound_ms(rows, n_valid, cfg.grid_shape,
+                                        tiling.block)
+    log("7 ES 3D", f"es3d_substep on the main path's inputs ({rows} rows): "
+                   f"{report}; kernel {k_ms:.4f} ms "
+                   f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective), "
+                   f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    solve_ms = median_ms(torch, lambda: es.solve_fields(cfg, rho))
+    log("7 ES 3D", f"solve_fields (cuFFT, 128^3) {solve_ms:.4f} ms")
+    del args, e_grid, rho
+    profile_window(torch, "7 ES 3D", f"{resort} steps + resort",
+                   lambda: sim.step(resort))
+    return {
+        "name": "B5:es3d_substep", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/es3d_substep.cu",
+        "replaces": "fusion_sim_tpu/ops/pallas_pic3d.py:213",
+        "launches": launches, "max_abs_err": err, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def phase8_em3d_main(torch, em, fe3, Tiling3D, smi, kernel_modules,
+                     n: int = N_3D, spill_capacity: int = 16384):
+    from fusion_sim_torch.ops import fdtd
+
+    resort, windows = 6, 3
+    tiling = Tiling3D(**TILING_3D)
+    cfg = em3d_config(em)
+    t0 = time.perf_counter()
+    pos, vel = rung_3d_particles(n)
+    sim = em.SortedElectromagneticPIC(
+        cfg, pos, vel, tiling=tiling, resort_every=resort, check_spill=False,
+        gather_backend="fused", spill_capacity=spill_capacity)
+    del pos, vel
+    torch.cuda.synchronize()
+    rows = sim.state.position.shape[0]
+    log("8 EM 3D", f"set-up {time.perf_counter() - t0:.2f} s ({n} particles, "
+                   f"128^3, {rows} layout rows, tile 8^3 block 512 margin 2, "
+                   f"resort every {resort}, spill capacity {spill_capacity})")
+    r0 = sorted_gauss_residual(torch, em, sim)
+    t0 = time.perf_counter()
+    sim.step(resort)
+    torch.cuda.synchronize()
+    log("8 EM 3D", f"warm window ({resort} steps + resort) "
+                   f"{time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernel_modules)
+    rates = run_windows(torch, sim, windows, resort)
+    launches = fe3.LAUNCHES
+    steps = windows * resort
+    if launches != steps:
+        raise AssertionError(f"B6 launches {launches} != steps {steps}")
+    st = sim.state
+    check_em_state(torch, st, n)
+    r1 = sorted_gauss_residual(torch, em, sim)
+    if not r1 - r0 < 5e-3 * max(r0, 1.0):
+        raise AssertionError(f"Gauss residual grew from {r0} to {r1}")
+    rate = float(np.median(rates))
+    en = sim.energies()
+    log("8 EM 3D", f"{smi}: {steps} timed steps, windows "
+                   f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, median "
+                   f"{rate:.3f} steps/s = {rate * n:.4g} particle updates/s; "
+                   f"B6 launches {launches}; spill patched {st.spill}, "
+                   f"dropped {st.spill_dropped} (capacity {spill_capacity}); "
+                   f"Gauss residual {r0:.6g} -> {r1:.6g} over {st.step} "
+                   f"steps; field energy {en['field']:.6g}, kinetic "
+                   f"{en['kinetic']:.6g}; peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # kernel vs plain and bound, on the main path's own inputs
+    table = fdtd.center_fields(st.e, st.b, fdtd.E_OFFSETS_3D,
+                               fdtd.B_OFFSETS_3D)
+    args = em_substep_args(cfg, tiling, table, st)
+    err, report = compare_fused(
+        torch, "B6", fe3.fused_em3d_substep(*args),
+        fe3.fused_em3d_substep_plain(*args), args[3], "J")
+    k_ms = median_ms(torch, lambda: fe3.fused_em3d_substep(*args))
+    p_ms = median_ms(torch, lambda: fe3.fused_em3d_substep_plain(*args),
+                     reps=3, warm=1)
+    b_ms, b_by, b_bytes = em3d_bound_ms(rows, n, cfg.grid_shape,
+                                        tiling.block)
+    log("8 EM 3D", f"em3d_substep on the main path's inputs ({rows} rows): "
+                   f"{report}; kernel {k_ms:.4f} ms "
+                   f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective), "
+                   f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    c_ms = median_ms(torch, lambda: fdtd.center_fields(
+        st.e, st.b, fdtd.E_OFFSETS_3D, fdtd.B_OFFSETS_3D))
+    j = torch.zeros_like(st.e)
+    y_ms = median_ms(torch, lambda: em.yee_update(cfg, st.e, st.b, j))
+    log("8 EM 3D", f"center_fields {c_ms:.4f} ms, Yee update {y_ms:.4f} ms "
+                   f"(128^3)")
+    del args, table, j
+    profile_window(torch, "8 EM 3D", f"{resort} steps + resort",
+                   lambda: sim.step(resort))
+    return {
+        "name": "B6:em3d_substep", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/em3d_substep.cu",
+        "replaces": "fusion_sim_tpu/ops/pallas_em3d.py:253",
+        "launches": launches, "max_abs_err": err, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
 def main() -> None:
     try:
         import torch
@@ -1056,10 +1455,12 @@ def main() -> None:
         from fusion_sim_torch.models import pusher_sorted as ps
         from fusion_sim_torch.ops import _build
         from fusion_sim_torch.ops import fused_em as fe
+        from fusion_sim_torch.ops import fused_em3d as fe3
         from fusion_sim_torch.ops import fused_pic as fp
+        from fusion_sim_torch.ops import fused_pic3d as f3
         from fusion_sim_torch.ops import fused_pusher as fpu
         from fusion_sim_torch.ops import sorted_gather as sg
-        from fusion_sim_torch.ops.sorted_deposit import (Tiling2D,
+        from fusion_sim_torch.ops.sorted_deposit import (Tiling2D, Tiling3D,
                                                          build_padded_layout)
     except ImportError as exc:
         fail(f"fusion_sim_torch is not importable next to chip_smoke.py: "
@@ -1097,10 +1498,11 @@ def main() -> None:
     phase3_es(torch, es, fp, Tiling2D, build_padded_layout, dev, tiling)
     phase3_pusher(torch, pm, ps, sc, fpu, sg, Tiling2D, dev)
     phase3_em(torch, em, fe, Tiling2D, build_padded_layout, dev)
+    phase3_3d(torch, es, em, f3, fe3, Tiling3D, build_padded_layout, dev)
     log("3 kernels", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the ES main path ----------------------------------------------------
-    kernel_modules = (fp, fpu, sg, fe)
+    kernel_modules = (fp, fpu, sg, fe, f3, fe3)
     b1 = phase4_es_main(torch, es, fp, dev, tiling, smi, kernel_modules)
     torch.cuda.empty_cache()
     log("4 ES", f"done at {time.perf_counter() - t_start:.1f} s")
@@ -1119,9 +1521,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     log("6 EM", f"done at {time.perf_counter() - t_start:.1f} s")
     b3_em = phase6b_em_pallas(torch, em, sg, Tiling2D, smi, kernel_modules)
+    torch.cuda.empty_cache()
     log("6b EM pallas", f"done at {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [b1, b2, b3, b4, b3_em]}), flush=True)
+    # -- 7. the 3D ES main path, 8. the 3D EM main path, at full size ----------
+    b5 = phase7_es3d_main(torch, es, f3, Tiling3D, smi, kernel_modules)
+    torch.cuda.empty_cache()
+    log("7 ES 3D", f"done at {time.perf_counter() - t_start:.1f} s")
+    b6 = phase8_em3d_main(torch, em, fe3, Tiling3D, smi, kernel_modules)
+    log("8 EM 3D", f"done at {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": [b1, b2, b3, b4, b3_em, b5, b6]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-"""Electromagnetic particle-in-cell model (Yee FDTD + Esirkepov, 2D3V).
+"""Electromagnetic particle-in-cell model (Yee FDTD + Esirkepov, 2D3V/3D).
 
 Port of ``fusion_sim_tpu/models/electromagnetic.py``.  The
 charge-conserving electromagnetic PIC loop:
@@ -15,13 +15,12 @@ to the gamma-corrected form (velocity then stores u = gamma v).
 
 ``SortedElectromagneticPIC(gather_backend='fused')`` is the main path:
 particles live in the padded tile-sorted layout, and one fused kernel per
-step does gather + kick + drift + deposit (ops/fused_em.py) before the Yee
-update.
+step does gather + kick + drift + deposit (ops/fused_em.py in 2D,
+ops/fused_em3d.py in 3D) before the Yee update.
 
 The reference's ``jit``/``lax.scan``/``lax.cond`` become plain Python
 control flow; step and spill counters are Python ints.  Every entry point
-runs on the CUDA card unless given ``device="cpu"``.  3D raises
-NotImplementedError (ROADMAP.md Queue A, item 9).
+runs on the CUDA card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -36,19 +35,21 @@ import torch
 
 from .._device import resolve_device
 from ..ops import fdtd
-from ..ops.esirkepov import esirkepov_deposit_2d
+from ..ops.esirkepov import esirkepov_deposit_2d, esirkepov_deposit_3d
 from ..ops.fused_em import fused_em2d_substep
+from ..ops.fused_em3d import fused_em3d_substep
 from ..ops.interp import cic_deposit, cic_gather_packed, spill_rows
 from ..ops.precision import PRECISIONS, resolve_precision
-from ..ops.sorted_deposit import (Tiling2D, build_padded_layout,
-                                  esirkepov_sorted_2d, gather_sorted_2d)
+from ..ops.sorted_deposit import (Tiling2D, Tiling3D, build_padded_layout,
+                                  esirkepov_sorted_2d, esirkepov_sorted_3d,
+                                  gather_sorted_2d, gather_sorted_3d)
 from ..ops.sorted_gather import gather_sorted_2d_window
 
 _ROADMAP = "is not ported yet (ROADMAP.md Queue A, {})"
 
 
 class EMState(NamedTuple):
-    position: torch.Tensor   # (N, 2) grid units
+    position: torch.Tensor   # (N, d) grid units, d = 2 or 3
     velocity: torch.Tensor   # (N, 3) physical (c = 1)
     e: torch.Tensor          # (*grid, 3)
     b: torch.Tensor          # (*grid, 3)
@@ -90,10 +91,21 @@ class EMConfig:
                              f"{courant:.3f} >= 1")
 
 
-def _require_2d(config: EMConfig, what: str) -> None:
-    if config.n_dim != 2:
-        raise NotImplementedError(f"3D {what} "
-                                  + _ROADMAP.format("item 9, 3D"))
+def _offsets(config: EMConfig):
+    """(E, B) Yee offsets of the config's dimension."""
+    if config.n_dim == 2:
+        return fdtd.E_OFFSETS_2D, fdtd.B_OFFSETS_2D
+    return fdtd.E_OFFSETS_3D, fdtd.B_OFFSETS_3D
+
+
+def _deposit(config: EMConfig, x0, x1, coord_v, charge):
+    """The exact Esirkepov deposit of the config's dimension for rows
+    moving x0 -> x1 (unwrapped); ``coord_v`` gives the 2D3V z-current."""
+    if config.n_dim == 2:
+        return esirkepov_deposit_2d(x0, x1, coord_v[:, 2], charge, config.dt,
+                                    config.grid_shape, config.cell_size)
+    return esirkepov_deposit_3d(x0, x1, charge, config.dt, config.grid_shape,
+                                config.cell_size)
 
 
 def _gamma(velocity: torch.Tensor, c: float) -> torch.Tensor:
@@ -135,14 +147,15 @@ def yee_update(config: EMConfig, e, b, j):
 
 
 def make_step_fn(config: EMConfig):
-    _require_2d(config, "EM step")
+    if config.n_dim not in (2, 3):
+        raise ValueError("the EM model is 2D3V or 3D")
     if config.field_gather not in ("staggered", "centered"):
         raise ValueError(f"field_gather {config.field_gather!r} "
                          f"(staggered|centered)")
     shape = config.grid_shape
     dx = config.cell_size
     qm_half_dt = config.charge / config.mass * config.dt * 0.5
-    e_off, b_off = fdtd.E_OFFSETS_2D, fdtd.B_OFFSETS_2D
+    e_off, b_off = _offsets(config)
 
     def push_and_deposit(e_field, b_field, position, velocity, table):
         """Gather -> kick -> drift -> deposit for one particle batch."""
@@ -158,9 +171,8 @@ def make_step_fn(config: EMConfig):
         coord_v = _coord_velocity(config, velocity)
         dxv = torch.tensor(dx, dtype=torch.float32, device=dev)
         grid_f = torch.tensor(shape, dtype=torch.float32, device=dev)
-        x1_unwrapped = position + config.dt * coord_v[:, :2] / dxv
-        j = esirkepov_deposit_2d(position, x1_unwrapped, coord_v[:, 2],
-                                 config.charge, config.dt, shape, dx)
+        x1_unwrapped = position + config.dt * coord_v[:, :config.n_dim] / dxv
+        j = _deposit(config, position, x1_unwrapped, coord_v, config.charge)
         return torch.remainder(x1_unwrapped, grid_f), velocity, j
 
     def step(state: EMState) -> EMState:
@@ -257,7 +269,6 @@ class ElectromagneticPIC:
 
     def __init__(self, config: EMConfig, position, velocity, e=None, b=None,
                  device=None):
-        _require_2d(config, "ElectromagneticPIC")
         self.config = config
         dev = resolve_device(device)
         n = np.asarray(position).shape[0]
@@ -289,13 +300,13 @@ class ElectromagneticPIC:
 
 
 # ---------------------------------------------------------------------------
-# Sorted-layout 2D variant: the fused-kernel main path
+# Sorted-layout variant (2D3V and 3D): the fused-kernel main path
 # ---------------------------------------------------------------------------
 
 class SortedEMState(NamedTuple):
     """Padded tile-sorted EM layout (fillers: valid=False, charge 0)."""
 
-    position: torch.Tensor   # (Npad, 2)
+    position: torch.Tensor   # (Npad, d), d = 2 or 3
     velocity: torch.Tensor   # (Npad, 3)
     tile_id: torch.Tensor    # (Npad,) int32, tile at last resort
     valid: torch.Tensor      # (Npad,) bool
@@ -325,7 +336,7 @@ def sorted_em_state_from_numpy(blob: dict, device=None) -> SortedEMState:
 
 
 class SortedElectromagneticPIC:
-    """2D3V EM PIC on the tile-sorted layout.
+    """EM PIC (2D3V or 3D) on the tile-sorted layout.
 
     Physics identical to ``ElectromagneticPIC(field_gather='centered')``.
     Same layout / resort contract as ``SortedElectrostaticPIC``: the shell
@@ -334,12 +345,15 @@ class SortedElectromagneticPIC:
 
     ``gather_backend``: 'fused' runs the whole particle substep (gather +
     Boris kick + drift + Esirkepov deposit) in one kernel
-    (ops/fused_em.py); 'pallas' routes the field gather through the
-    windowed gather kernel (ops/sorted_gather.py) and deposits with
-    ``esirkepov_sorted_2d``; 'xla' does the same on ``gather_sorted_2d``.
-    Constructor arguments, validation and defaults are the reference's,
-    less the ``repair_*``/``eager_capacity`` tuning of the repair path:
-    ``repair=True`` and 3D raise NotImplementedError.
+    (ops/fused_em.py in 2D, ops/fused_em3d.py in 3D); 'pallas' routes the
+    2D field gather through the windowed gather kernel
+    (ops/sorted_gather.py) and deposits with ``esirkepov_sorted_2d``; 'xla'
+    does the same on ``gather_sorted_2d``.  In 3D (a ``Tiling3D``) 'xla'
+    runs ``gather_sorted_3d`` and ``esirkepov_sorted_3d``, and 'pallas'
+    takes the same route, as in the reference: the windowed gather kernel
+    is 2D only.  Constructor arguments, validation and defaults are the
+    reference's, less the ``repair_*``/``eager_capacity`` tuning of the
+    repair path: ``repair=True`` raises NotImplementedError.
     """
 
     def __init__(self, config: EMConfig, position, velocity,
@@ -367,8 +381,10 @@ class SortedElectromagneticPIC:
         if repair and not spill_fallback:
             raise ValueError("repair=True requires spill_fallback=True")
         self.config = config
-        self.tiling = tiling or Tiling2D()
-        _require_2d(config, "sorted EM")
+        if config.n_dim not in (2, 3):
+            raise ValueError("the sorted EM model is 2D3V or 3D")
+        self.tiling = tiling or (Tiling2D() if config.n_dim == 2
+                                 else Tiling3D())
         if repair:
             raise NotImplementedError(
                 "repair=True " + _ROADMAP.format("item 5, repair/eager"))
@@ -394,8 +410,9 @@ class SortedElectromagneticPIC:
             raise ValueError(f"particle count must be a multiple of "
                              f"{self.tiling.block}")
         shape = config.grid_shape
-        pos = torch.as_tensor(np.asarray(position, np.float32).reshape(n, 2),
-                              device=dev)
+        pos = torch.as_tensor(
+            np.asarray(position, np.float32).reshape(n, config.n_dim),
+            device=dev)
         vel = torch.as_tensor(np.asarray(velocity, np.float32).reshape(n, 3),
                               device=dev)
         tid, pos_p, v0, v1, v2, valid_p, _ = build_padded_layout(
@@ -471,9 +488,10 @@ class SortedElectromagneticPIC:
         config, state = self.config, self.state
         shape = config.grid_shape
         qm_half_dt, dxv, grid_f = self._consts
-        table = fdtd.center_fields(state.e, state.b, fdtd.E_OFFSETS_2D,
-                                   fdtd.B_OFFSETS_2D)
-        x1, velocity, j, in_win = fused_em2d_substep(
+        table = fdtd.center_fields(state.e, state.b, *_offsets(config))
+        substep = (fused_em2d_substep if config.n_dim == 2
+                   else fused_em3d_substep)
+        x1, velocity, j, in_win = substep(
             table, state.position, state.velocity, state.valid,
             state.tile_id, shape, self.tiling, qm_half_dt, config.dt,
             config.cell_size, config.charge, c_light=config.c,
@@ -487,10 +505,8 @@ class SortedElectromagneticPIC:
             vel_k = boris_kick(state.velocity[idx], eb_k[:, :3], eb_k[:, 3:],
                                qm_half_dt, config.relativistic, config.c)
             cv_k = _coord_velocity(config, vel_k)
-            x1_k = x0_k + config.dt * cv_k[:, :2] / dxv
-            j = j + esirkepov_deposit_2d(x0_k, x1_k, cv_k[:, 2],
-                                         config.charge, config.dt, shape,
-                                         config.cell_size)
+            x1_k = x0_k + config.dt * cv_k[:, :config.n_dim] / dxv
+            j = j + _deposit(config, x0_k, x1_k, cv_k, config.charge)
             x1[idx] = torch.remainder(x1_k, grid_f)
             velocity[idx] = vel_k
         self._finish(state, x1, velocity, j, spill)
@@ -502,15 +518,16 @@ class SortedElectromagneticPIC:
         config, state = self.config, self.state
         shape = config.grid_shape
         qm_half_dt, dxv, grid_f = self._consts
-        table = fdtd.center_fields(state.e, state.b, fdtd.E_OFFSETS_2D,
-                                   fdtd.B_OFFSETS_2D)
-        if self.gather_backend == "pallas":
+        ndim = config.n_dim
+        table = fdtd.center_fields(state.e, state.b, *_offsets(config))
+        if self.gather_backend == "pallas" and ndim == 2:
             eb, g_inw = gather_sorted_2d_window(
                 table, state.position, state.tile_id, shape, self.tiling,
                 "cic", precision=self.pallas_precision or "highest")
         else:
-            eb, g_inw = gather_sorted_2d(table, state.position,
-                                         state.tile_id, shape, self.tiling)
+            gather = gather_sorted_2d if ndim == 2 else gather_sorted_3d
+            eb, g_inw = gather(table, state.position, state.tile_id, shape,
+                               self.tiling)
         if self.spill_fallback:
             _, g_idx = self._spilled(~g_inw & state.valid)
             if g_idx is not None:
@@ -522,19 +539,23 @@ class SortedElectromagneticPIC:
         velocity = torch.where(state.valid[:, None], velocity, 0.0)
         coord_v = _coord_velocity(config, velocity)
         x0 = state.position
-        x1 = x0 + config.dt * coord_v[:, :2] / dxv   # unwrapped for deposit
+        x1 = x0 + config.dt * coord_v[:, :ndim] / dxv  # unwrapped for deposit
         charge = torch.where(state.valid, config.charge, 0.0).to(
             torch.float32)
-        j, _, spill_mask = esirkepov_sorted_2d(
-            x0, x1, coord_v[:, 2], charge, state.tile_id, config.dt, shape,
-            config.cell_size, self.tiling)
+        if ndim == 2:
+            j, _, spill_mask = esirkepov_sorted_2d(
+                x0, x1, coord_v[:, 2], charge, state.tile_id, config.dt,
+                shape, config.cell_size, self.tiling)
+        else:
+            j, _, spill_mask = esirkepov_sorted_3d(
+                x0, x1, charge, state.tile_id, config.dt, shape,
+                config.cell_size, self.tiling)
         spill, idx = self._spilled(spill_mask)
         if idx is not None:
             # exact patch for up to spill_capacity margin out-drifters
             # (charge conservation holds while spill stays under capacity)
-            j = j + esirkepov_deposit_2d(
-                x0[idx], x1[idx], coord_v[idx, 2], charge[idx], config.dt,
-                shape, config.cell_size)
+            j = j + _deposit(config, x0[idx], x1[idx], coord_v[idx],
+                             charge[idx])
         self._finish(state, torch.remainder(x1, grid_f), velocity, j, spill)
 
     def _resort(self) -> None:

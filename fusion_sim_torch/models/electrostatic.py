@@ -1,4 +1,4 @@
-"""Electrostatic particle-in-cell model (periodic, 1D/2D; sorted 2D).
+"""Electrostatic particle-in-cell model (periodic, 1D/2D/3D; sorted 2D/3D).
 
 Port of ``fusion_sim_tpu/models/electrostatic.py``.  The self-consistent
 loop, with leapfrog time-staggering (velocities at half-integer steps) and
@@ -12,7 +12,8 @@ a static neutralizing background:
 
 ``SortedElectrostaticPIC(backend='pallas')`` is the main path: particles
 live in the padded tile-sorted layout, and one fused kernel per step does
-gather + kick + drift + deposit (ops/fused_pic.py) between FFT solves.
+gather + kick + drift + deposit (ops/fused_pic.py in 2D, ops/fused_pic3d.py
+in 3D) between FFT solves.
 
 The reference's ``jit``/``lax.scan``/``lax.cond`` become plain Python
 control flow; step and spill counters are Python ints.  Every entry point
@@ -32,11 +33,12 @@ import torch
 
 from .._device import resolve_device
 from ..ops.fused_pic import fused_es2d_substep
+from ..ops.fused_pic3d import fused_es3d_substep
 from ..ops.interp import cic_deposit_packed, cic_gather_packed, spill_rows
 from ..ops.precision import resolve_precision
 from ..ops.solvers import gradient_periodic, poisson_fft
-from ..ops.sorted_deposit import (Tiling2D, build_padded_layout,
-                                  deposit_sorted_2d)
+from ..ops.sorted_deposit import (Tiling2D, Tiling3D, build_padded_layout,
+                                  deposit_sorted_2d, deposit_sorted_3d)
 
 
 class ESState(NamedTuple):
@@ -177,7 +179,7 @@ class ElectrostaticPIC:
 
 
 # ---------------------------------------------------------------------------
-# Sorted-layout 2D variant: the fused-kernel main path
+# Sorted-layout variant (2D and 3D): the fused-kernel main path
 # ---------------------------------------------------------------------------
 
 _ROADMAP = "is not ported yet (ROADMAP.md Queue A, {})"
@@ -186,8 +188,8 @@ _ROADMAP = "is not ported yet (ROADMAP.md Queue A, {})"
 class SortedESState(NamedTuple):
     """Padded tile-sorted particle layout (fillers: valid=False, weight 0)."""
 
-    position: torch.Tensor   # (Npad, 2) grid units
-    velocity: torch.Tensor   # (Npad, 2)
+    position: torch.Tensor   # (Npad, d) grid units, d = 2 or 3
+    velocity: torch.Tensor   # (Npad, d)
     tile_id: torch.Tensor    # (Npad,) int32, tile at last resort
     valid: torch.Tensor      # (Npad,) bool
     step: int
@@ -214,7 +216,8 @@ def sorted_state_from_numpy(blob: dict, device=None) -> SortedESState:
 
 
 class SortedElectrostaticPIC:
-    """2D ES PIC on the tile-sorted layout with the fused particle kernel.
+    """ES PIC (2D or 3D) on the tile-sorted layout with the fused particle
+    kernel.
 
     Physics identical to ``ElectrostaticPIC`` (same CIC/FFT/leapfrog).
     Particles live in the padded tile-sorted layout of
@@ -223,9 +226,10 @@ class SortedElectrostaticPIC:
     ``tiling.margin`` cells).  Rows that out-drift their window anyway are
     patched exactly, up to ``spill_capacity`` a step.
 
-    Constructor arguments, validation and defaults are the reference's.
-    ``backend='pallas'`` (the fused kernel) is the ported path;
-    ``backend='xla'``, ``repair=True`` and 3D raise NotImplementedError.
+    Constructor arguments, validation and defaults are the reference's;
+    3D takes a ``Tiling3D``.  ``backend='pallas'`` (the fused kernel:
+    ops/fused_pic.py in 2D, ops/fused_pic3d.py in 3D) is the ported path;
+    ``backend='xla'`` and ``repair=True`` raise NotImplementedError.
     """
 
     def __init__(self, config: ESConfig, position, velocity,
@@ -246,15 +250,18 @@ class SortedElectrostaticPIC:
             raise ValueError(f"particle count must be a multiple of "
                              f"{self.tiling.block}")
         self.n_real = n
-        pos = torch.as_tensor(np.asarray(position, np.float32).reshape(n, 2),
-                              device=self.device)
-        vel = torch.as_tensor(np.asarray(velocity, np.float32).reshape(n, 2),
-                              device=self.device)
-        tid, pos_p, v0, v1, valid_p, _ = build_padded_layout(
-            pos, config.grid_shape, self.tiling, vel[:, 0], vel[:, 1],
-            derive_valid=True)
+        ndim = config.n_dim
+        pos = torch.as_tensor(
+            np.asarray(position, np.float32).reshape(n, ndim),
+            device=self.device)
+        vel = torch.as_tensor(
+            np.asarray(velocity, np.float32).reshape(n, ndim),
+            device=self.device)
+        tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
+            pos, config.grid_shape, self.tiling,
+            *[vel[:, a] for a in range(ndim)], derive_valid=True)
         self.state = SortedESState(
-            position=pos_p, velocity=torch.stack([v0, v1], dim=-1),
+            position=pos_p, velocity=torch.stack(v_cols, dim=-1),
             tile_id=tid, valid=valid_p, step=0, spill=0, spill_dropped=0)
         self.state = self.state._replace(rho=self._initial_rho())
 
@@ -319,7 +326,8 @@ class SortedElectrostaticPIC:
             raise ValueError(f"pallas_precision {pallas_precision!r}")
         if pallas_precision == "exact_bf16_pack2" and config.n_dim != 2:
             raise ValueError("exact_bf16_pack2 is 2D-only")
-        self.tiling = tiling or Tiling2D()
+        self.tiling = tiling or (Tiling2D() if config.n_dim == 2
+                                 else Tiling3D())
         if repair_eager:
             if not repair:
                 raise ValueError("repair_eager requires repair=True")
@@ -327,9 +335,6 @@ class SortedElectrostaticPIC:
                 raise ValueError(
                     f"repair_eager={repair_eager} must be in "
                     f"1..margin ({self.tiling.margin})")
-        if config.n_dim != 2:
-            raise NotImplementedError(
-                "3D sorted ES " + _ROADMAP.format("item 9, 3D"))
         if backend != "pallas":
             raise NotImplementedError(
                 "backend='xla' " + _ROADMAP.format(
@@ -399,10 +404,12 @@ class SortedElectrostaticPIC:
         _, e_grid = solve_fields(config, rho)
         w = self._weights()
         qm_dt = float(config.charge / config.mass * config.dt)
-        c_r, c_z = (float(config.dt / d) for d in config.cell_size)
-        pos, vel, rho_new, in_win = fused_es2d_substep(
+        c_ax = (float(config.dt / d) for d in config.cell_size)
+        substep = (fused_es2d_substep if config.n_dim == 2
+                   else fused_es3d_substep)
+        pos, vel, rho_new, in_win = substep(
             e_grid, state.position, state.velocity, w, state.tile_id,
-            shape, self.tiling, qm_dt, c_r, c_z,
+            shape, self.tiling, qm_dt, *c_ax,
             precision=self.pallas_precision or "highest")
         spill_mask = (~in_win) & state.valid
         # the one host read of the step: it picks the patch tier
@@ -438,13 +445,12 @@ class SortedElectrostaticPIC:
         the trailing dead region, which the truncation drops."""
         s = self.state
         n_state = s.position.shape[0]
-        tid, pos_p, v0, v1, valid_p, _ = build_padded_layout(
+        tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
             s.position, self.config.grid_shape, self.tiling,
-            s.velocity[:, 0], s.velocity[:, 1], valid=s.valid,
-            derive_valid=True)
+            *s.velocity.unbind(-1), valid=s.valid, derive_valid=True)
         self.state = s._replace(
             position=pos_p[:n_state],
-            velocity=torch.stack([v0[:n_state], v1[:n_state]], dim=-1),
+            velocity=torch.stack([v[:n_state] for v in v_cols], dim=-1),
             tile_id=tid[:n_state], valid=valid_p[:n_state])
 
     def step(self, n: int = 1) -> None:
@@ -480,7 +486,8 @@ class SortedElectrostaticPIC:
         ke = 0.5 * cfg.mass * float(torch.sum(
             torch.where(valid[:, None], v, 0.0) ** 2))
         w = self._weights()
-        rho, spill, spill_mask = deposit_sorted_2d(
+        deposit = deposit_sorted_2d if cfg.n_dim == 2 else deposit_sorted_3d
+        rho, spill, spill_mask = deposit(
             self.state.position, w, self.state.tile_id, cfg.grid_shape,
             self.tiling)
         if self.spill_fallback and int(spill):

@@ -1,4 +1,4 @@
-"""Esirkepov charge-conserving current deposition (CIC order, 2D3V).
+"""Esirkepov charge-conserving current deposition (CIC order, 2D3V and 3D).
 
 Port of ``fusion_sim_tpu/ops/esirkepov.py``.  Esirkepov's density
 decomposition (CPC 135 (2001) 144) builds J from the particle motion
@@ -10,15 +10,15 @@ holds at every node, with rho the CIC-deposited density and div_Yee the
 staggered Yee divergence: Gauss's law stays satisfied with no divergence
 cleaning.
 
-Layout: J is packed (*grid_shape, 3) with Jx at (i+1/2, j), Jy at
-(i, j+1/2) and Jz collocated at the nodes (a vz-weighted deposit,
-Esirkepov eq. 39).
+Layout: J is packed (*grid_shape, 3) with Jx at (i+1/2, j[, k]), Jy at
+(i, j+1/2[, k]), Jz at (i, j, k+1/2) in 3D and collocated at the nodes in
+2D3V (a vz-weighted deposit, Esirkepov eq. 39).
 
 Every particle adds onto a 3-node stencil per axis (the CIC supports of
 the start and end positions union to <= 3 nodes while |dx| < 1 cell).
 The reference packs the 27 stencil values into one scatter row per
-particle, a TPU form; here ``index_add_`` adds the 9 stencil nodes onto
-the wrapped grid, which is the same sum.
+particle (81 in 3D), a TPU form; here ``index_add_`` adds the 9 (27)
+stencil nodes onto the wrapped grid, which is the same sum.
 """
 
 from __future__ import annotations
@@ -97,7 +97,51 @@ def esirkepov_deposit_2d(x0: torch.Tensor, x1: torch.Tensor,
     return grid.reshape(nx, ny, 3)
 
 
-def esirkepov_deposit_3d(*args, **kwargs):
-    raise NotImplementedError(
-        "esirkepov_deposit_3d is not ported yet (ROADMAP.md Queue A, "
-        "item 9, 3D)")
+_ROWS_3D = 1 << 20  # rows per pass of esirkepov_deposit_3d
+
+
+def esirkepov_deposit_3d(x0: torch.Tensor, x1: torch.Tensor, charge,
+                         dt: float, shape: tuple[int, int, int],
+                         cell_size: tuple[float, float, float]
+                         ) -> torch.Tensor:
+    """Full 3D Esirkepov deposition of particles moving x0 -> x1 (grid
+    units, under a cell per axis; ``x1`` may be unwrapped) over dt;
+    ``charge`` scalar or (N,).  Returns (*shape, 3) current density.
+
+    Component a (b, c the other two axes) has the weight
+    W_a = dS_a [S0_b S0_c + (dS_b S0_c + S0_b dS_c)/2 + dS_b dS_c/3] and
+    J_a = -q d_a/(V dt) cumsum_a W_a.  Rows are processed ``_ROWS_3D`` at a
+    time: the stencil holds 81 values a row."""
+    nx, ny, nz = shape
+    vol = cell_size[0] * cell_size[1] * cell_size[2]
+    n = x0.shape[0]
+    q_all = torch.as_tensor(charge, dtype=torch.float32,
+                            device=x0.device).expand(n)
+    grid = torch.zeros((nx * ny * nz, 3), dtype=torch.float32,
+                       device=x0.device)
+    k = torch.arange(3, device=x0.device)
+    for lo in range(0, n, _ROWS_3D):
+        a0, a1 = x0[lo:lo + _ROWS_3D], x1[lo:lo + _ROWS_3D]
+        q = q_all[lo:lo + _ROWS_3D]
+        bases = [stencil_base(a0[:, c], a1[:, c]) for c in range(3)]
+        s0 = [_shapes_1d(a0[:, c], bases[c]) for c in range(3)]
+        ds = [_shapes_1d(a1[:, c], bases[c]) - s0[c] for c in range(3)]
+        coef = (q / (vol * dt))[:, None, None, None]
+        j_vals = []
+        for axis in range(3):
+            b, c = [a for a in range(3) if a != axis]           # b < c
+            mix = (s0[b][:, :, None] * s0[c][:, None, :]
+                   + 0.5 * (ds[b][:, :, None] * s0[c][:, None, :]
+                            + s0[b][:, :, None] * ds[c][:, None, :])
+                   + (1.0 / 3.0) * (ds[b][:, :, None] * ds[c][:, None, :]))
+            shape4 = [q.shape[0], 1, 1, 1]
+            shape4[1 + axis] = 3
+            w = ds[axis].reshape(shape4) * mix.unsqueeze(1 + axis)
+            j_vals.append(-coef * cell_size[axis] * cumsum3(w, 1 + axis))
+        vals = torch.stack(j_vals, dim=-1)                  # (n, 3, 3, 3, 3c)
+        gx = torch.remainder(bases[0][:, None] + k, nx)[:, :, None, None]
+        gy = torch.remainder(bases[1][:, None] + k, ny)[:, None, :, None]
+        gz = torch.remainder(bases[2][:, None] + k, nz)[:, None, None, :]
+        grid.index_add_(0, ((gx * ny + gy) * nz + gz).reshape(-1),
+                        vals.reshape(-1, 3))
+    return grid.reshape(nx, ny, nz, 3)

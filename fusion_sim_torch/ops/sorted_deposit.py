@@ -1,4 +1,4 @@
-"""Tile-sorted particle layout, 2D (port of the 2D part of
+"""Tile-sorted particle layout, 2D and 3D (port of
 ``fusion_sim_tpu/ops/sorted_deposit.py``).
 
 Particles live sorted by grid tile, each tile's segment padded with dead
@@ -14,6 +14,10 @@ the in-window rows straight onto the grid, which is the same sum;
 ``gather_sorted_2d`` reads the window cells straight from the grid, and
 ``esirkepov_sorted_2d`` adds each row's stencil onto the wrapped grid.
 ``fold_tile_windows``/``extract_tile_windows`` keep their dense-roll form.
+The 3D functions (``Tiling3D``, ``tile_ids_3d``, ``deposit_sorted_3d``,
+``gather_sorted_3d``, ``esirkepov_sorted_3d``) keep the same contracts;
+the reference's flattened-lane windows, one-hot placement matmuls and
+scanned block groups are TPU forms and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ import math
 
 import torch
 
-from .esirkepov import esirkepov_deposit_2d, stencil_base
+from .esirkepov import (esirkepov_deposit_2d, esirkepov_deposit_3d,
+                        stencil_base)
 from .interp import cic_deposit_packed
 
 _NOT_YET = ("is not ported yet (ROADMAP.md Queue A: item 5, repair/eager "
-            "for ES, brings reserve/spread; item 9, 3D, brings Tiling3D)")
+            "for ES, brings reserve/spread)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +82,48 @@ def tile_ids(position: torch.Tensor, shape: tuple[int, int],
     return tr * ntz + tz
 
 
+@dataclasses.dataclass(frozen=True)
+class Tiling3D:
+    """3D tile geometry (see Tiling2D): tile cells per axis, P particles
+    per block, margin cells of drift tolerance on every side."""
+
+    tile: tuple[int, int, int] = (8, 8, 8)
+    block: int = 512
+    margin: int = 1
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.margin + 1 > min(self.tile):  # see Tiling2D.__post_init__
+            raise ValueError(
+                f"margin {self.margin} needs margin + 1 <= tile "
+                f"{self.tile} — windows may overhang at most one "
+                f"neighboring tile per side")
+
+    def n_tiles(self, shape: tuple[int, int, int]) -> tuple[int, int, int]:
+        if any(n % t for n, t in zip(shape, self.tile)):
+            raise ValueError(f"grid {shape} not divisible by tile "
+                             f"{self.tile}")
+        return tuple(n // t for n, t in zip(shape, self.tile))
+
+    def window(self) -> tuple[int, int, int]:
+        """(wx, wy, wz): cells of a tile window, margins and CIC node
+        included."""
+        return tuple(t + 2 * self.margin + 1 for t in self.tile)
+
+
+def tile_ids_3d(position: torch.Tensor, shape: tuple[int, int, int],
+                tiling: Tiling3D) -> torch.Tensor:
+    """Flat tile id per particle (z fastest), int64."""
+    nts = tiling.n_tiles(shape)
+    base = torch.floor(position).to(torch.int64)
+    tid = 0
+    for a in range(3):
+        t = torch.clamp(torch.div(base[:, a], tiling.tile[a],
+                                  rounding_mode="floor"), 0, nts[a] - 1)
+        tid = tid * nts[a] + t
+    return tid
+
+
 def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
                         tiling, *payloads: torch.Tensor,
                         valid: torch.Tensor | None = None,
@@ -97,8 +144,6 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
     tile, so the two agree on ``tile_id``/``valid`` and on each tile
     segment as a set of rows.
     """
-    if len(shape) != 2:
-        raise NotImplementedError("3D layout " + _NOT_YET)
     if reserve or spread:
         raise NotImplementedError("reserve/spread " + _NOT_YET)
     n_tiles = math.prod(tiling.n_tiles(shape))
@@ -110,7 +155,8 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
     dev = position.device
     total_pad = n_tiles * p_blk
 
-    tid = tile_ids(position, shape, tiling)
+    tid = (tile_ids if len(shape) == 2 else tile_ids_3d)(position, shape,
+                                                         tiling)
     if valid is not None:
         tid = torch.where(valid, tid, n_tiles)
     counts = torch.bincount(tid, minlength=n_tiles + 1)[:n_tiles]
@@ -154,6 +200,22 @@ def window_origins(tile_id: torch.Tensor, shape: tuple[int, int],
     otr = torch.div(blk_tile, ntz, rounding_mode="floor") * tiling.tile_r
     otz = torch.remainder(blk_tile, ntz) * tiling.tile_z
     return otr - tiling.margin, otz - tiling.margin
+
+
+def window_origins_3d(tile_id: torch.Tensor, shape: tuple[int, int, int],
+                      tiling: Tiling3D) -> list[torch.Tensor]:
+    """Per-block window origins (tile_a * t_a - margin per axis) of the
+    padded 3D layout, three int64 (nb,) tensors; the tile index unrolls z
+    fastest, and the sentinel tile maps past the end on x."""
+    nts = tiling.n_tiles(shape)
+    rem = tile_id[::tiling.block].to(torch.int64)
+    origins = [None, None, None]
+    for a in (2, 1):
+        origins[a] = torch.remainder(rem, nts[a]) * tiling.tile[a] \
+            - tiling.margin
+        rem = torch.div(rem, nts[a], rounding_mode="floor")
+    origins[0] = rem * tiling.tile[0] - tiling.margin
+    return origins
 
 
 def deposit_sorted_2d(position: torch.Tensor, weights: torch.Tensor,
@@ -259,6 +321,114 @@ def esirkepov_sorted_2d(x0: torch.Tensor, x1: torch.Tensor,
     in_win = (dbr <= wr - 3) & (dbz <= wz - 3)
     j = esirkepov_deposit_2d(x0, x1, vz, torch.where(in_win, q, 0.0), dt,
                              shape, cell_size)
+    spill_mask = (~in_win) & (q != 0)
+    return j, spill_mask.sum(), spill_mask
+
+
+def _window_offsets_3d(base: torch.Tensor, tile_id: torch.Tensor,
+                       shape: tuple[int, int, int], tiling: Tiling3D):
+    """Per axis: the block window's origin per row and the offset
+    mod(base - origin, n) of the int64 cells ``base`` (N, 3) from it."""
+    origins = [o.repeat_interleave(tiling.block)
+               for o in window_origins_3d(tile_id, shape, tiling)]
+    return origins, [torch.remainder(base[:, a] - origins[a], shape[a])
+                     for a in range(3)]
+
+
+def deposit_sorted_3d(position: torch.Tensor, weights: torch.Tensor,
+                      tile_id: torch.Tensor, shape: tuple[int, int, int],
+                      tiling: Tiling3D
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """3D CIC deposit of tile-sorted particles (see ``deposit_sorted_2d``);
+    returns ``(grid, spill_count, spill_mask)``."""
+    n = position.shape[0]
+    if n % tiling.block:
+        raise ValueError(f"N={n} not a multiple of block={tiling.block}")
+    wins = tiling.window()
+    _, d = _window_offsets_3d(torch.floor(position).to(torch.int64), tile_id,
+                              shape, tiling)
+    in_win = (d[0] < wins[0] - 1) & (d[1] < wins[1] - 1) \
+        & (d[2] < wins[2] - 1)
+    grid = cic_deposit_packed(position, torch.where(in_win, weights, 0.0),
+                              shape)
+    spill_mask = (~in_win) & (weights != 0)
+    return grid, spill_mask.sum(), spill_mask
+
+
+def gather_sorted_3d(grid: torch.Tensor, position: torch.Tensor,
+                     tile_id: torch.Tensor, shape: tuple[int, int, int],
+                     tiling: Tiling3D, mode: str = "cic"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """3D tile-window gather (see ``gather_sorted_2d``); returns ``(values
+    (N[, C]), in_win (N,) bool)``.
+
+    ``grid`` (nx, ny, nz[, C]); ``position`` (N, 3) grid units in the
+    padded sorted layout.  A row is in its window when its base cell lies
+    within the block's window on all three axes; every row reads at the
+    base cell clipped into the window, weights (1 - frac, frac) per axis
+    with frac = x - floor(x), summed over z, then y, then x (the
+    reference contracts the (y, z) pair first)."""
+    if mode not in ("cic", "nearest"):
+        raise ValueError(f"mode {mode!r} (cic|nearest)")
+    n = position.shape[0]
+    if n % tiling.block:
+        raise ValueError(f"N={n} not a multiple of block={tiling.block}")
+    wins = tiling.window()
+    channels = tuple(grid.shape[3:])
+    flat = grid.reshape(math.prod(shape), -1)
+    base_f = torch.floor(position)
+    frac = position - base_f
+    origins, d = _window_offsets_3d(base_f.to(torch.int64), tile_id, shape,
+                                    tiling)
+    in_win = (d[0] < wins[0] - 1) & (d[1] < wins[1] - 1) \
+        & (d[2] < wins[2] - 1)
+    # wrapped grid index of the clipped cell and of the next one, per axis
+    g0 = [torch.remainder(origins[a] + torch.clamp(d[a], max=wins[a] - 2),
+                          shape[a]) for a in range(3)]
+    ny, nz = shape[1], shape[2]
+    if mode == "nearest":
+        out = flat[(g0[0] * ny + g0[1]) * nz + g0[2]]
+        return out.reshape(n, *channels), in_win
+    g1 = [torch.remainder(g0[a] + 1, shape[a]) for a in range(3)]
+    w0 = [(1.0 - frac[:, a])[:, None] for a in range(3)]
+    w1 = [frac[:, a:a + 1] for a in range(3)]
+    out = 0.0
+    for gx, wx in ((g0[0], w0[0]), (g1[0], w1[0])):
+        plane = 0.0
+        for gy, wy in ((g0[1], w0[1]), (g1[1], w1[1])):
+            row = (gx * ny + gy) * nz
+            plane = plane + (wy * w0[2]) * flat[row + g0[2]] \
+                + (wy * w1[2]) * flat[row + g1[2]]
+        out = out + wx * plane
+    return out.reshape(n, *channels), in_win
+
+
+def esirkepov_sorted_3d(x0: torch.Tensor, x1: torch.Tensor, charge,
+                        tile_id: torch.Tensor, dt: float,
+                        shape: tuple[int, int, int],
+                        cell_size: tuple[float, float, float],
+                        tiling: Tiling3D
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """3D charge-conserving current deposition for tile-sorted particles;
+    returns ``(j_grid (nx, ny, nz, 3), spill_count, spill_mask)``.
+
+    The window criterion of ``esirkepov_sorted_2d`` on three axes: the
+    wrapped stencil base floor(min(x0, x1)) at most ``w - 3`` cells from the
+    block's window origin.  Other rows deposit nothing and, if they carry
+    charge, count as spill.  ``charge`` must be 0 on filler rows.  The
+    in-window rows' ``esirkepov_deposit_3d`` on the wrapped grid is the sum
+    the reference assembles per block and folds."""
+    n = x0.shape[0]
+    if n % tiling.block:
+        raise ValueError(f"N={n} not a multiple of block={tiling.block}")
+    wins = tiling.window()
+    q = torch.as_tensor(charge, dtype=torch.float32,
+                        device=x0.device).expand(n)
+    _, d = _window_offsets_3d(stencil_base(x0, x1), tile_id, shape, tiling)
+    in_win = (d[0] <= wins[0] - 3) & (d[1] <= wins[1] - 3) \
+        & (d[2] <= wins[2] - 3)
+    j = esirkepov_deposit_3d(x0, x1, torch.where(in_win, q, 0.0), dt, shape,
+                             cell_size)
     spill_mask = (~in_win) & (q != 0)
     return j, spill_mask.sum(), spill_mask
 

@@ -298,15 +298,23 @@ def test_sorted_constructor_validation_and_not_ported():
                                      tiling=tiling, device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         make(repair=True)
+    # 3D configurations are built now (they raised before the 3D slice);
+    # repair still waits there
+    from fusion_sim_torch.ops.sorted_deposit import Tiling3D
     cfg3 = tem.EMConfig(grid_shape=(16,) * 3, cell_size=(0.5,) * 3,
                         dt=0.05, charge=-0.01, mass=0.01)
     pos3 = np.zeros((1024, 3), np.float32)
+    tiling3 = Tiling3D((8, 8, 8), 128, 1)
     for build in (lambda: tem.SortedElectromagneticPIC(
-                      cfg3, pos3, pos3, tiling=tiling, device="cpu"),
+                      cfg3, pos3, pos3, tiling=tiling3, device="cpu"),
                   lambda: tem.ElectromagneticPIC(cfg3, pos3, pos3,
                                                  device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            build()
+        sim = build()
+        sim.step(1)
+        assert sim.state.position.shape[1] == 3 and sim.state.step == 1
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tem.SortedElectromagneticPIC(cfg3, pos3, pos3, tiling=tiling3,
+                                     repair=True, device="cpu")
     with pytest.raises(ValueError, match="CFL"):
         tem.EMConfig(grid_shape=(16, 16), cell_size=(0.5, 0.5), dt=0.4,
                      charge=-0.01, mass=0.01)

@@ -74,8 +74,18 @@ def test_esirkepov_deposit_2d_keeps_continuity():
 
 
 def test_esirkepov_deposit_3d_is_queued():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        esirkepov_deposit_3d()
+    """Was queued with the 3D slice; now it runs: a row at rest deposits no
+    current, a moving one a current along its motion only (the comparison
+    with the reference is in tests/test_torch_sorted_layout3d.py)."""
+    x0 = torch.tensor([[3.2, 4.5, 5.1], [7.7, 2.2, 9.4]])
+    x1 = x0 + torch.tensor([[0.0, 0.0, 0.0], [0.3, 0.0, 0.0]])
+    j = esirkepov_deposit_3d(x0, x1, -1.7, DT, (16, 16, 16), (0.7, 1.3, 0.9))
+    assert j.shape == (16, 16, 16, 3)
+    assert float(j[..., 1:].abs().max()) == 0.0
+    total = float(j[..., 0].sum())
+    # sum Jx * V = q * dx_phys / dt for the moving row
+    np.testing.assert_allclose(total * 0.7 * 1.3 * 0.9,
+                               -1.7 * 0.3 * 0.7 / DT, rtol=1e-5)
 
 
 def _sorted_case(seed, push_out):

@@ -232,3 +232,126 @@ def test_pusher_kernels_reject_bad_inputs(cuda):
         sorted_gather.gather_sorted_2d_window(
             torch.zeros((64, 64), device=cuda).t(), p3[:, :2].contiguous(),
             tid, (64, 64), tiling)
+
+
+def _layout3d(cuda, vscale, shape, tiling, n, seed, jitter=0.0):
+    """Tile-sorted 3D rows on the card: (position, velocity, valid,
+    tile_id), positions optionally jittered after the sort so that some
+    rows fail only the gather criterion."""
+    rng = np.random.default_rng(seed)
+    pos = torch.tensor(rng.random((n, 3)) * np.array(shape),
+                       dtype=torch.float32, device=cuda)
+    vel = torch.tensor(vscale * rng.standard_normal((n, 3)),
+                       dtype=torch.float32, device=cuda)
+    tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
+        pos, shape, tiling, vel[:, 0], vel[:, 1], vel[:, 2],
+        derive_valid=True)
+    if jitter:
+        pos_p = torch.remainder(
+            pos_p + jitter * torch.tensor(
+                rng.standard_normal(tuple(pos_p.shape)), dtype=torch.float32,
+                device=cuda),
+            torch.tensor(shape, dtype=torch.float32, device=cuda))
+    return (pos_p.contiguous(), torch.stack([v0, v1, v2], -1).contiguous(),
+            valid, tid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,margin,vscale,jitter", [
+    ((8, 8, 8), 2, 0.5, 0.0), ((8, 8, 8), 1, 6.0, 0.0),
+    ((8, 8, 16), 2, 3.0, 1.5)])   # no spill / heavy spill / big window
+def test_fused_es3d_substep_kernel_matches_plain(cuda, tile, margin, vscale,
+                                                 jitter):
+    """Built with -fmad=false and the plain version's operation order:
+    positions, velocities and in_win bit for bit; rho differs only by the
+    order of its atomic sums, 1e-5 of max|rho|.  The (8, 8, 16) window
+    needs 56.8 KB of shared memory (the opt-in path)."""
+    from fusion_sim_torch.ops import fused_pic3d
+    from fusion_sim_torch.ops.sorted_deposit import Tiling3D
+
+    shape = (16, 16, 32)
+    tiling = Tiling3D(tile=tile, block=128, margin=margin)
+    pos_p, vel_p, valid, tid = _layout3d(cuda, vscale, shape, tiling, 8192,
+                                         14, jitter)
+    e_grid = torch.tensor(np.random.default_rng(15).standard_normal(
+        (*shape, 3)), dtype=torch.float32, device=cuda)
+    w = torch.where(valid, 1.5, 0.0).to(torch.float32)
+    args = (e_grid, pos_p, vel_p, w, tid, shape, tiling, 0.25, 0.5, 0.4, 0.6)
+    before = fused_pic3d.LAUNCHES
+    got = fused_pic3d.fused_es3d_substep(*args)
+    assert fused_pic3d.LAUNCHES == before + 1
+    plain = fused_pic3d.fused_es3d_substep_plain(*args)
+    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
+        assert torch.equal(got[i], plain[i]), name
+    scale = float(plain[2].abs().max())
+    assert float((got[2] - plain[2]).abs().max()) <= 1e-5 * scale
+    if vscale > 1:
+        assert int((~plain[3] & valid).sum()) > 100, "needs actual spill"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("margin,vscale,jitter,relativistic,c_light", [
+    (2, 0.3, 0.0, False, 1.0), (2, 1.5, 0.0, True, 1.0),
+    (1, 12.0, 1.0, False, 1.0), (2, 25.0, 1.0, True, 60.0)])
+def test_fused_em3d_substep_kernel_matches_plain(cuda, margin, vscale, jitter,
+                                                 relativistic, c_light):
+    """Positions, velocities and in_win bit for bit; J differs only by the
+    order of its atomic sums, 1e-5 of max|J|."""
+    from fusion_sim_torch.ops import fused_em3d
+    from fusion_sim_torch.ops.sorted_deposit import Tiling3D
+
+    shape = (16, 16, 32)
+    tiling = Tiling3D(tile=(8, 8, 8), block=128, margin=margin)
+    pos_p, vel_p, valid, tid = _layout3d(cuda, vscale, shape, tiling, 8192,
+                                         16, jitter)
+    table = torch.tensor(np.random.default_rng(17).standard_normal(
+        (*shape, 6)), dtype=torch.float32, device=cuda)
+    args = (table, pos_p, vel_p, valid, tid, shape, tiling, 0.1, 0.1,
+            (0.5, 0.8, 0.6), -0.01)
+    kw = dict(c_light=c_light, relativistic=relativistic)
+    before = fused_em3d.LAUNCHES
+    got = fused_em3d.fused_em3d_substep(*args, **kw)
+    assert fused_em3d.LAUNCHES == before + 1
+    plain = fused_em3d.fused_em3d_substep_plain(*args, **kw)
+    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
+        assert torch.equal(got[i], plain[i]), name
+    scale = float(plain[2].abs().max())
+    assert float((got[2] - plain[2]).abs().max()) <= 1e-5 * scale
+    if vscale > 10:
+        assert int((~plain[3] & valid).sum()) > 100, "needs actual spill"
+
+
+@pytest.mark.cuda
+def test_3d_kernels_reject_bad_inputs(cuda):
+    from fusion_sim_torch.ops import fused_em3d, fused_pic3d
+    from fusion_sim_torch.ops.sorted_deposit import Tiling3D
+
+    shape = (16, 16, 32)
+    tiling = Tiling3D(tile=(8, 8, 8), block=128, margin=2)
+    pos_p, vel_p, valid, tid = _layout3d(cuda, 0.1, shape, tiling, 256, 18)
+    table = torch.zeros((*shape, 6), device=cuda)
+    args = [table, pos_p, vel_p, valid, tid]
+    for i, name, bad, exc in (
+            (0, "table", table.cpu(), ValueError),
+            (1, "position", pos_p[:, :2].contiguous(), ValueError),
+            (2, "velocity", vel_p.t().contiguous().t(), ValueError),
+            (3, "valid", valid.float(), TypeError),
+            (4, "tile_id", tid.long(), TypeError)):
+        broken = list(args)
+        broken[i] = bad
+        with pytest.raises(exc, match=name):
+            fused_em3d.fused_em3d_substep(*broken, shape, tiling, 0.1, 0.1,
+                                          (0.5, 0.5, 0.5), -0.01)
+    w = valid.float()
+    with pytest.raises(ValueError, match="e_grid"):
+        fused_pic3d.fused_es3d_substep(table, pos_p, vel_p, w, tid, shape,
+                                       tiling, 0.1, 0.1, 0.1, 0.1)
+    # a window that cannot fit in a block's shared memory is refused
+    big = Tiling3D(tile=(16, 16, 32), block=128, margin=7)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_pic3d.fused_es3d_substep(table[..., :3].contiguous(), pos_p,
+                                       vel_p, w, tid, shape, big, 0.1, 0.1,
+                                       0.1, 0.1)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_em3d.fused_em3d_substep(*args, shape, big, 0.1, 0.1,
+                                      (0.5, 0.5, 0.5), -0.01)

@@ -85,6 +85,22 @@ def test_default_device_is_cuda():
                                     tiling=Tiling2D(16, 16, 256, margin=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         em.weibel(n_particles=1024, n_cells=32, sorted_layout=True)
+    # the 3D entry points (default Tiling3D: block 512)
+    pos3 = np.random.default_rng(1).random((512, 3)).astype(np.float32) * 16
+    es3 = es.ESConfig(grid_shape=(16,) * 3, cell_size=(0.1,) * 3, dt=0.05,
+                      charge=-1e-3, mass=1e-3)
+    em3 = em.EMConfig(grid_shape=(16,) * 3, cell_size=(0.5,) * 3, dt=0.1,
+                      charge=-0.01, mass=0.01)
+    for build in (
+            lambda: es.ElectrostaticPIC(es3, pos3, 0 * pos3),
+            lambda: es.SortedElectrostaticPIC(es3, pos3, 0 * pos3,
+                                              backend="pallas"),
+            lambda: em.ElectromagneticPIC(em3, pos3, 0 * pos3),
+            lambda: em.SortedElectromagneticPIC(em3, pos3, 0 * pos3,
+                                                gather_backend="fused"),
+            lambda: em.SortedElectromagneticPIC(em3, pos3, 0 * pos3)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
     assert resolve_device("cpu").type == "cpu"
     sim = CylindricalParticlePusher(spec, device="cpu")
     apply_default_scenario(sim)

@@ -71,6 +71,14 @@ def test_tiling_and_layout_validation():
         tp.build_padded_layout(pos, SHAPE, tp.Tiling2D(**TILE), reserve=True)
     with pytest.raises(ValueError, match="multiple"):
         tp.build_padded_layout(pos[:100], SHAPE, tp.Tiling2D(**TILE))
+    # a 3D grid with a Tiling3D is laid out too (it raised before the 3D
+    # slice); reserve/spread still wait there
+    out = tp.build_padded_layout(torch.zeros((128, 3)), (16, 16, 16),
+                                 tp.Tiling3D((8, 8, 8), 128, 1))
+    assert out[1].shape == (128 + 8 * 128, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tp.build_padded_layout(torch.zeros((128, 3)), (16, 16, 16),
+                               tp.Tiling3D((8, 8, 8), 128, 1), reserve=True)
     np.testing.assert_array_equal(
         tp.tile_ids(torch.tensor(_particles()[0]), SHAPE,
                     tp.Tiling2D(**TILE)).numpy(),
