@@ -23,7 +23,13 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                tiling (8^3, block 512, margin 2) on a 64^3 grid, thermal
                and heavy-spill inputs (B6 also relativistic, and both
                forms of its field read), then small 3D ES and EM runs on
-               the card against the CPU across resorts;
+               the card against the CPU across resorts; X1
+               (contraction_depth) at m = 96, p = 256, G = 4, S = 8 for
+               both orders, both precisions and every K; small runs on the
+               card against the CPU of ES 2D ``backend='xla'``, ES 2D and
+               3D ``repair=True, repair_eager=1``, EM 2D fused with repair,
+               EM 3D fused with repair and eager 1, the fused pusher with
+               repair, and the analytic fast path on the same uniforms;
 4. ES main path — ``SortedElectrostaticPIC(backend='pallas')`` at the
                headline size (9,999,360 particles, 512^2, tile 32, margin
                10, resort every 20): one warm window, two timed windows;
@@ -66,10 +72,31 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                every 6): one warm window, three timed windows; B6 launches,
                drops, validity, finiteness and Gauss's law checked, B6
                timed against its plain version and its bound on the path's
-               own inputs, one profiled window.
+               own inputs, one profiled window;
+9. X1        — the contraction-depth experiment's default sweep at full
+               size (S = 305, G = 32, m = 96, p = 1024; both orders, both
+               precisions, K in {24, 32, 48, 96, 128}) through
+               ``fusion_sim_torch.examples.mxu_experiment.make_bench``: one
+               launch a variant, checked against the plain version, then
+               ms (median of 20), G rows/s, bound, share of bound and the
+               library time (``torch.matmul`` + sums);
+10. fast path — ``enable_fast_path()`` on the default scenario at
+               1,048,576 protons (400 x 800, dt 2e-9), bench.py's
+               headline: one warm batch of 50 steps, four timed batches,
+               pushes/s, finite state, alive fraction, respawns inside the
+               source box; bench.py's drift check (256 protons, no sinks,
+               10,000 substeps, max |dv|/v < 1e-3); one profiled batch;
+11. EM repair — examples/bench_em_fused.py's repair rung: 10,002,432
+               particles, 512^2, ``Tiling2D(16, 16, 1024, margin=7)``,
+               ``repair=True``, resort 1e9, ``gather_backend='fused'``: one
+               warm and two timed windows of 12 steps; B4 launches, drops,
+               validity, finiteness and Gauss's law checked, ``unplaced``
+               printed, steps/s beside phase 6's resort-12 figure, one
+               profiled window.
 
 The line before the last lists the kernels as JSON (B3 twice: once for
-each path that runs it); the last line is the
+each path that runs it; X1 with its sweep's launches and the numbers of
+its lhs_k_lanes / highest / K = 128 variant); the last line is the
 result: ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -87,6 +114,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 
 
 def fail(msg: str) -> None:
@@ -147,13 +176,14 @@ def profile_window(torch, phase, label, fn):
     if busy <= 0:
         log(phase, "profiler recorded no device time: breakdown not "
                    "measured")
-        return
+        return None
+    n_ops = sum(r[1] for r in rows)
     log(phase, f"profiled window ({label}): wall {wall_ms:.2f} ms "
                f"(profiler on), device busy {busy:.2f} ms "
-               f"({100 * busy / wall_ms:.1f}%), {sum(r[1] for r in rows)} "
-               f"device ops")
+               f"({100 * busy / wall_ms:.1f}%), {n_ops} device ops")
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         log(phase, f"  {ms:9.3f} ms {count:5d}x {key[:90]}")
+    return n_ops
 
 
 # -- ES (kernel B1) ------------------------------------------------------------
@@ -240,29 +270,11 @@ def phase3_es(torch, es, fp, Tiling2D, build_padded_layout, dev, tiling):
     kw = dict(tiling=Tiling2D(16, 16, 256, margin=2), resort_every=4,
               spill_capacity=4096, spill_tiers=(64, 512), check_spill=False,
               backend="pallas")
-    cpu = es.SortedElectrostaticPIC(cfg_s, pos_s, vel_s, device="cpu", **kw)
-    blob = {k: (v.numpy() if torch.is_tensor(v) else v)
-            for k, v in cpu.state._asdict().items() if v is not None}
-    gpu = es.SortedElectrostaticPIC.from_state(cfg_s, blob, device="cuda",
-                                               **kw)
-    cpu.step(10)
-    gpu.step(10)
-    e_c, e_g = cpu.energies(), gpu.energies()
-    for key in ("kinetic", "field"):
-        if not math.isclose(e_g[key], e_c[key], rel_tol=1e-4):
-            raise AssertionError(f"small run {key}: card {e_g[key]} vs "
-                                 f"CPU {e_c[key]}")
-    pc = cpu.state.position[cpu.state.valid].numpy()
-    pg = gpu.state.position[gpu.state.valid].cpu().numpy()
-    dmax = max(float(np.abs(np.sort(pc[:, a]) - np.sort(pg[:, a])).max())
-               for a in range(2))
-    if dmax > 1e-3:
-        raise AssertionError(f"small run positions differ by {dmax}")
-    log("3 kernels", f"small ES run (16384 particles, 64^2, 10 steps, "
-                     f"{gpu.state.spill} spilled rows patched): card vs CPU "
-                     f"kinetic {e_g['kinetic']:.9g} / {e_c['kinetic']:.9g}, "
-                     f"field {e_g['field']:.9g} / {e_c['field']:.9g}, sorted "
-                     f"positions within {dmax:.3g}")
+    card_vs_cpu(torch, "small ES run (pallas)",
+                es.SortedElectrostaticPIC(cfg_s, pos_s, vel_s, device="cpu",
+                                          **kw),
+                lambda blob: es.SortedElectrostaticPIC.from_state(
+                    cfg_s, blob, device="cuda", **kw), ("rho",), 10, n_small)
 
 
 def phase4_es_main(torch, es, fp, dev, tiling, smi, kernel_modules):
@@ -848,43 +860,12 @@ def phase3_em(torch, em, fe, Tiling2D, build_padded_layout, dev,
         kw = dict(tiling=Tiling2D(16, 16, 256, margin=2), resort_every=4,
                   spill_capacity=4096, check_spill=False,
                   gather_backend=backend)
-        cpu = em.SortedElectromagneticPIC(cfg_s, pos_s, vel_s, e=e0, b=b0,
-                                          device="cpu", **kw)
-        blob = {k: (v.numpy() if torch.is_tensor(v) else v)
-                for k, v in cpu.state._asdict().items()}
-        gpu = em.SortedElectromagneticPIC.from_state(cfg_s, blob,
-                                                     device="cuda", **kw)
-        cpu.step(10)
-        gpu.step(10)
-        if gpu.state.spill_dropped or cpu.state.spill_dropped:
-            raise AssertionError(f"small EM run ({backend}) dropped rows")
-        errs = {}
-        for name in ("e", "b"):
-            want = getattr(cpu.state, name)
-            errs[name] = float((getattr(gpu.state, name).cpu() - want)
-                               .abs().max()) / float(want.abs().max())
-            if errs[name] > 1e-4:
-                raise AssertionError(f"small EM run ({backend}) {name}: "
-                                     f"card vs CPU {errs[name]} relative")
-        e_c, e_g = cpu.energies(), gpu.energies()
-        for key in ("kinetic", "field"):
-            if not math.isclose(e_g[key], e_c[key], rel_tol=1e-4):
-                raise AssertionError(f"small EM run ({backend}) {key}: "
-                                     f"card {e_g[key]} vs CPU {e_c[key]}")
-        pc = cpu.state.position[cpu.state.valid].numpy()
-        pg = gpu.state.position[gpu.state.valid].cpu().numpy()
-        dmax = max(float(np.abs(np.sort(pc[:, a]) - np.sort(pg[:, a])).max())
-                   for a in range(2))
-        if pg.shape[0] != n_small or dmax > 1e-3:
-            raise AssertionError(f"small EM run ({backend}): {pg.shape[0]} "
-                                 f"valid rows, positions differ by {dmax}")
-        log("3 kernels", f"small EM run ({backend}, {n_small} particles, "
-                         f"64^2, 10 steps, spill card {gpu.state.spill} / "
-                         f"CPU {cpu.state.spill} rows patched): card vs CPU "
-                         f"E within {errs['e']:.3g}, B within "
-                         f"{errs['b']:.3g} of their scale, kinetic "
-                         f"{e_g['kinetic']:.9g} / {e_c['kinetic']:.9g}, "
-                         f"sorted positions within {dmax:.3g}")
+        card_vs_cpu(torch, f"small EM run ({backend})",
+                    em.SortedElectromagneticPIC(cfg_s, pos_s, vel_s, e=e0,
+                                                b=b0, device="cpu", **kw),
+                    lambda blob: em.SortedElectromagneticPIC.from_state(
+                        cfg_s, blob, device="cuda", **kw), ("e", "b"), 10,
+                    n_small)
 
 
 def em_sim(torch, em, Tiling2D, n: int, backend: str, resort: int):
@@ -983,7 +964,7 @@ def phase6_em_main(torch, em, fe, Tiling2D, smi, kernel_modules,
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }
+    }, rate
 
 
 def phase6b_em_pallas(torch, em, sg, Tiling2D, smi, kernel_modules,
@@ -1197,53 +1178,15 @@ def phase3_3d(torch, es, em, f3, fe3, Tiling3D, build_padded_layout, dev,
     rng = np.random.default_rng(42)
     pos_s = (rng.random((n_small, 3)) * cells).astype(np.float32)
 
-    def against_cpu(label, cpu, from_state, names, tol):
-        blob = {k: (v.numpy() if torch.is_tensor(v) else v)
-                for k, v in cpu.state._asdict().items() if v is not None}
-        gpu = from_state(blob)
-        cpu.step(7)
-        gpu.step(7)
-        if gpu.state.spill_dropped or cpu.state.spill_dropped:
-            raise AssertionError(f"{label} dropped rows")
-        if not min(gpu.state.spill, cpu.state.spill) > 0:
-            raise AssertionError(f"{label}: no row was patched")
-        errs = {}
-        for name in names:
-            want = getattr(cpu.state, name)
-            errs[name] = float((getattr(gpu.state, name).cpu() - want)
-                               .abs().max()) / float(want.abs().max())
-            if errs[name] > tol:
-                raise AssertionError(f"{label} {name}: card vs CPU "
-                                     f"{errs[name]} relative")
-        e_c, e_g = cpu.energies(), gpu.energies()
-        for key in ("kinetic", "field"):
-            if not math.isclose(e_g[key], e_c[key], rel_tol=1e-4):
-                raise AssertionError(f"{label} {key}: card {e_g[key]} vs "
-                                     f"CPU {e_c[key]}")
-        pc = cpu.state.position[cpu.state.valid].numpy()
-        pg = gpu.state.position[gpu.state.valid].cpu().numpy()
-        dmax = max(float(np.abs(np.sort(pc[:, a]) - np.sort(pg[:, a])).max())
-                   for a in range(3))
-        if pg.shape[0] != n_small or dmax > 1e-3:
-            raise AssertionError(f"{label}: {pg.shape[0]} valid rows, "
-                                 f"positions differ by {dmax}")
-        log("3 kernels", f"{label} ({n_small} particles, 16^3, 7 steps, "
-                         f"spill card {gpu.state.spill} / CPU "
-                         f"{cpu.state.spill} rows patched): card vs CPU "
-                         + ", ".join(f"{k} within {v:.3g}"
-                                     for k, v in errs.items())
-                         + f" of their scale, kinetic {e_g['kinetic']:.9g} /"
-                         f" {e_c['kinetic']:.9g}, sorted positions within "
-                         f"{dmax:.3g}")
-
     cfg_s = es3d_config(es, n_small, cells)
     vel_s = (3.0 * rng.standard_normal((n_small, 3))).astype(np.float32)
     kw = dict(small, backend="pallas", spill_tiers=(64, 512))
-    against_cpu("small 3D ES run",
+    card_vs_cpu(torch, "small 3D ES run",
                 es.SortedElectrostaticPIC(cfg_s, pos_s, vel_s, device="cpu",
                                           **kw),
                 lambda blob: es.SortedElectrostaticPIC.from_state(
-                    cfg_s, blob, device="cuda", **kw), ("rho",), 1e-4)
+                    cfg_s, blob, device="cuda", **kw), ("rho",), 7, n_small,
+                need_spill=True)
     cfg_s = em3d_config(em, cells)
     vel_s = np.clip(1.5 * rng.standard_normal((n_small, 3)), -4.5,
                     4.5).astype(np.float32)
@@ -1254,11 +1197,12 @@ def phase3_3d(torch, es, em, f3, fe3, Tiling3D, build_padded_layout, dev,
     b0[..., 2] = 0.05 * np.sin(2 * np.pi * x / (cells * 0.5))[:, None, None]
     for backend in ("xla", "pallas", "fused"):
         kw = dict(small, gather_backend=backend)
-        against_cpu(f"small 3D EM run ({backend})",
+        card_vs_cpu(torch, f"small 3D EM run ({backend})",
                     em.SortedElectromagneticPIC(cfg_s, pos_s, vel_s, e=e0,
                                                 b=b0, device="cpu", **kw),
                     lambda blob: em.SortedElectromagneticPIC.from_state(
-                        cfg_s, blob, device="cuda", **kw), ("e", "b"), 1e-4)
+                        cfg_s, blob, device="cuda", **kw), ("e", "b"), 7,
+                    n_small, need_spill=True)
 
 
 def rung_3d_particles(n: int, cells: int = 128):
@@ -1438,6 +1382,487 @@ def phase8_em3d_main(torch, em, fe3, Tiling3D, smi, kernel_modules,
     }
 
 
+# -- phase 3, the paths of this slice: X1 and small runs against the CPU ------
+
+X1_DEPTHS = (24, 32, 48, 96, 128)
+
+
+def compare_x1(torch, cd, a, b, order, precision):
+    """X1 against its plain version on the same inputs: every output within
+    1e-5 ('highest', 3xTF32) or 1e-4 ('default', bf16 products exact, f32
+    sums in another order) of sum |a||b|.  Returns (max_abs_err, worst
+    error over its bound).  Launches made here are not part of a counted
+    run."""
+    got = cd.contraction_depth(a, b, order, precision)
+    plain = cd.contraction_depth_plain(a, b, order, precision)
+    scale = cd.contraction_depth_plain(a.abs(), b.abs(), order, "highest")
+    torch.cuda.synchronize()
+    tol = 1e-5 if precision == "highest" else 1e-4
+    err = (got - plain).abs()
+    if tuple(got.shape) != tuple(plain.shape) or not bool(
+            (err <= tol * scale).all()):
+        raise AssertionError(f"X1 {order} {precision} K={a.shape[-1]}: "
+                             f"kernel vs plain beyond {tol} of sum|a||b| "
+                             f"(worst {float((err / scale).max()):.3g})")
+    return float(err.max()), float((err / scale).max())
+
+
+def phase3_x1(torch, cd, dev):
+    s, g, m, p = 8, 4, 96, 256
+    for order in cd.ORDERS:
+        for precision in cd.PRECISIONS:
+            worst = []
+            for k in X1_DEPTHS:
+                gen = torch.Generator(device=dev).manual_seed(k)
+                a_shape = (s, g, m, k) if order == "lhs_k_lanes" \
+                    else (s, g, k, m)
+                a = torch.randn(a_shape, generator=gen, device=dev)
+                b = torch.randn((s, g, k, p), generator=gen, device=dev)
+                worst.append(compare_x1(torch, cd, a, b, order,
+                                        precision)[1])
+            log("3 kernels", f"contraction_depth {order} {precision} "
+                             f"(S {s}, G {g}, m {m}, p {p}), K "
+                             f"{'/'.join(map(str, X1_DEPTHS))}: worst error "
+                             f"{'/'.join(f'{w:.2g}' for w in worst)} of "
+                             f"sum|a||b| (tol "
+                             f"{1e-5 if precision == 'highest' else 1e-4:g})")
+
+
+def card_vs_cpu(torch, label, cpu, from_state, names, steps, n_real,
+                tol=1e-4, need_spill=False):
+    """A small run on the card against the same run on the CPU from one
+    carried state: no drops (and, with ``need_spill``, some rows patched),
+    ``names`` within ``tol`` of their scale, energies within 1e-4, the
+    valid rows' sorted positions within 1e-3 of a cell; with repair, rows
+    relocated on both and ``unplaced`` shown."""
+    blob = {k: (v.numpy() if torch.is_tensor(v) else v)
+            for k, v in cpu.state._asdict().items() if v is not None}
+    gpu = from_state(blob)
+    start = cpu.state.valid.clone()
+    cpu.step(steps)
+    gpu.step(steps)
+    if gpu.state.spill_dropped or cpu.state.spill_dropped:
+        raise AssertionError(f"{label} dropped rows")
+    if need_spill and not min(gpu.state.spill, cpu.state.spill) > 0:
+        raise AssertionError(f"{label}: no row was patched")
+    errs = {}
+    for name in names:
+        want = getattr(cpu.state, name)
+        errs[name] = float((getattr(gpu.state, name).cpu() - want).abs()
+                           .max()) / float(want.abs().max())
+        if errs[name] > tol:
+            raise AssertionError(f"{label} {name}: card vs CPU {errs[name]} "
+                                 f"relative")
+    e_c, e_g = cpu.energies(), gpu.energies()
+    for key in ("kinetic", "field"):
+        if not math.isclose(e_g[key], e_c[key], rel_tol=1e-4):
+            raise AssertionError(f"{label} {key}: card {e_g[key]} vs CPU "
+                                 f"{e_c[key]}")
+    grid = np.asarray(cpu.config.grid_shape, np.float32)
+    pc = np.mod(cpu.state.position[cpu.state.valid].numpy(), grid)
+    pg = np.mod(gpu.state.position[gpu.state.valid].cpu().numpy(), grid)
+    dmax = max(float(np.abs(np.sort(pc[:, a]) - np.sort(pg[:, a])).max())
+               for a in range(pc.shape[1]))
+    if pg.shape[0] != n_real or pc.shape[0] != n_real or dmax > 1e-3:
+        raise AssertionError(f"{label}: {pg.shape[0]} / {pc.shape[0]} valid "
+                             f"rows, positions differ by {dmax}")
+    extra = ""
+    if cpu.state.unplaced is not None:
+        moved = [int((s.valid.cpu() != start).sum())
+                 for s in (gpu.state, cpu.state)]
+        if min(moved) == 0:
+            raise AssertionError(f"{label}: repair relocated no row")
+        differ = int((gpu.state.valid.cpu() != cpu.state.valid).sum())
+        extra = (f", rows moved card {moved[0]} / CPU {moved[1]}, validity "
+                 f"differs on {differ} rows, unplaced card "
+                 f"{int(gpu.state.unplaced)} / CPU {int(cpu.state.unplaced)}")
+    log("3 kernels", f"{label} ({n_real} particles, {steps} steps, spill "
+                     f"card {gpu.state.spill} / CPU {cpu.state.spill}): card "
+                     f"vs CPU " + ", ".join(f"{k} within {v:.3g}"
+                                            for k, v in errs.items())
+                     + f" of their scale, kinetic {e_g['kinetic']:.9g} / "
+                     f"{e_c['kinetic']:.9g}, sorted positions within "
+                     f"{dmax:.3g}" + extra)
+
+
+def phase3_slice(torch, es, em, pm, ps, an, sc, Tiling2D, Tiling3D, dev):
+    """ES xla, ES/EM/pusher repair and the fast path: small runs on the
+    card against the CPU."""
+    from fusion_sim_torch.ops.repair import init_free_list
+
+    n2, cells = 16384, 64
+    rng = np.random.default_rng(51)
+    pos = (rng.random((n2, 2)) * cells).astype(np.float32)
+    vel = (0.3 * rng.standard_normal((n2, 2))).astype(np.float32)
+    vel[:, 0] += 1.5              # ~0.1 cells a step: tiles churn
+    cfg = headline_config(es, n2, cells)
+    for label, kw, steps in (
+            ("small ES run (xla)", dict(backend="xla", resort_every=4,
+                                        spill_tiers=(64, 512)), 10),
+            ("small ES repair run (pallas, eager 1)",
+             dict(backend="pallas", resort_every=10 ** 6, repair=True,
+                  repair_eager=1), 10)):
+        kw = dict(kw, tiling=Tiling2D(16, 16, 256, margin=2),
+                  spill_capacity=4096, check_spill=False)
+        card_vs_cpu(torch, label, es.SortedElectrostaticPIC(
+            cfg, pos, vel, device="cpu", **kw),
+            lambda blob, kw=kw: es.SortedElectrostaticPIC.from_state(
+                cfg, blob, device="cuda", **kw), ("rho",) if kw[
+                "backend"] == "pallas" else (), steps, n2)
+    n3, cells3 = 8192, 16
+    pos3 = (rng.random((n3, 3)) * cells3).astype(np.float32)
+    vel3 = (0.3 * rng.standard_normal((n3, 3))).astype(np.float32)
+    vel3[:, 0] += 1.5
+    cfg3 = es3d_config(es, n3, cells3)
+    kw = dict(tiling=Tiling3D((8, 8, 8), 128, margin=2), backend="pallas",
+              resort_every=10 ** 6, repair=True, repair_eager=1,
+              spill_capacity=4096, check_spill=False)
+    card_vs_cpu(torch, "small 3D ES repair run (pallas, eager 1)",
+                es.SortedElectrostaticPIC(cfg3, pos3, vel3, device="cpu",
+                                          **kw),
+                lambda blob: es.SortedElectrostaticPIC.from_state(
+                    cfg3, blob, device="cuda", **kw), ("rho",), 8, n3)
+
+    vel_em = (0.3 * rng.standard_normal((n2, 3))).astype(np.float32)
+    vel_em[:, 0] += 2.5           # 0.5 cells a step against margin 2
+    kw = dict(tiling=Tiling2D(16, 16, 256, margin=2), resort_every=10 ** 6,
+              spill_capacity=4096, check_spill=False, gather_backend="fused",
+              repair=True)
+    cfg_em = em_config(em, cells)
+    card_vs_cpu(torch, "small EM repair run (fused)",
+                em.SortedElectromagneticPIC(cfg_em, pos, vel_em,
+                                            device="cpu", **kw),
+                lambda blob: em.SortedElectromagneticPIC.from_state(
+                    cfg_em, blob, device="cuda", **kw), ("e", "b"), 10, n2)
+    vel3_em = (0.3 * rng.standard_normal((n3, 3))).astype(np.float32)
+    vel3_em[:, 0] += 2.5
+    kw = dict(kw, tiling=Tiling3D((8, 8, 8), 128, margin=2), repair_eager=1)
+    cfg3_em = em3d_config(em, cells3)
+    card_vs_cpu(torch, "small 3D EM repair run (fused, eager 1)",
+                em.SortedElectromagneticPIC(cfg3_em, pos3, vel3_em,
+                                            device="cpu", **kw),
+                lambda blob: em.SortedElectromagneticPIC.from_state(
+                    cfg3_em, blob, device="cuda", **kw), ("e", "b"), 8, n3)
+
+    # the fused pusher with repair: one carried state and fields, the same
+    # uniforms, no resort; relocation is integer work on bit-identical
+    # positions (B2 matches its plain version bit for bit), so the layouts
+    # must agree exactly
+    small = dict(nr=64, nz=128)
+    cpu = pusher_sim(pm, sc, 32, device="cpu", **small)
+    n = cpu.spec.n_total
+    r = np.sqrt(rng.random(n))
+    th = 2 * np.pi * rng.random(n)
+    cpu.set({"position": np.stack([r * np.cos(th), r * np.sin(th),
+                                   2 * rng.random(n)], -1),
+             "velocity": 0.02 * rng.standard_normal((n, 3))})
+    gpu = pm.CylindricalParticlePusher(dict(sc.DEFAULT_SPEC, nparticles=32,
+                                            **small), device="cuda")
+    gpu.set_state(cpu.get_state())
+    tiling = Tiling2D(8, 16, 128, 3)
+    step = ps.make_sorted_step_fn(cpu.spec, tiling, 4096, "fused",
+                                  repair=True)
+    n_tiles = math.prod(tiling.n_tiles((64, 128)))
+    states = []
+    for sim in (cpu, gpu):
+        st = ps.to_sorted_state(sim.state, sim.spec, tiling, reserve=True)
+        fidx, fcnt = init_free_list(st.tile_id, st.valid, n_tiles,
+                                    tiling.block, 64)
+        states.append(st._replace(free_idx=fidx, free_cnt=fcnt,
+                                  unplaced=torch.zeros(
+                                      (), dtype=torch.int64,
+                                      device=st.position.device)))
+    start = states[0].valid.clone()
+    gen = torch.Generator().manual_seed(17)
+    for _ in range(6):
+        rands = [torch.rand((states[0].position.shape[0], 4), generator=gen)
+                 for _ in range(2)]
+        states = [step(cpu.fields, states[0], rands),
+                  step(gpu.fields, states[1], [x.to(dev) for x in rands])]
+    st_c, st_g = states
+    for name in ("valid", "alive", "free_idx", "free_cnt", "unplaced"):
+        if not torch.equal(getattr(st_c, name), getattr(st_g, name).cpu()):
+            raise AssertionError(f"small pusher repair run: {name} differs "
+                                 f"between card and CPU")
+    counts = [(getattr(st_c, k), getattr(st_g, k))
+              for k in ("spill", "dropped", "dropped_over")]
+    if any(a != b for a, b in counts):
+        raise AssertionError(f"small pusher repair run counters {counts}")
+    errs = [float((getattr(st_g, k).cpu() - getattr(st_c, k)).abs().max())
+            / float(getattr(st_c, k).abs().max())
+            for k in ("position", "velocity")]
+    moved = int((st_c.valid != start).sum())
+    if max(errs) > 1e-6 or moved == 0:
+        raise AssertionError(f"small pusher repair run: rows differ by "
+                             f"{errs} of their scale, {moved} rows moved")
+    log("3 kernels", f"small pusher repair run (fused, {n} protons, 64 x "
+                     f"128, 6 steps, spill {st_g.spill}, {moved} rows "
+                     f"relocated, unplaced {int(st_g.unplaced)}): card vs "
+                     f"CPU validity, alive, free stacks and counters equal, "
+                     f"positions within {errs[0]:.3g}, velocities within "
+                     f"{errs[1]:.3g} of their scale")
+
+    # the fast path: one run on the same uniforms.  The rotation is taken
+    # in the (r, theta) frame of x / r, so near the axis a 1e-7 relative
+    # perturbation of a position grows to ~1e-5 of a velocity in 6
+    # substeps (measured on the CPU); rows start off the axis and are held
+    # at 1e-4 of their scale (CUDA's rsqrt and log differ from the CPU's
+    # by ulps)
+    spec = pm.PusherSpec(**dict(sc.DEFAULT_SPEC, nparticles=64))
+    scen = an.default_scenario()
+    n = spec.n_total
+    r = 0.05 + 0.25 * rng.random(n)
+    r[::20] = 1.05                # outside the sink box: they respawn
+    th = 2 * np.pi * rng.random(n)
+    pos_f = np.stack([r * np.cos(th), r * np.sin(th),
+                      0.3 + 0.4 * rng.random(n)], -1).astype(np.float32)
+    vel_f = (0.002 * rng.standard_normal((n, 3))).astype(np.float32)
+    states = [an.FastState(torch.tensor(pos_f, device=d),
+                           torch.tensor(vel_f, device=d),
+                           torch.ones(n, device=d)) for d in ("cpu", dev)]
+    gen = torch.Generator().manual_seed(18)
+    for _ in range(6):
+        rand = torch.rand((n, 4), generator=gen)
+        states = [an._substep(spec, scen, states[0], rand),
+                  an._substep(spec, scen, states[1], rand.to(dev))]
+    st_c, st_g = states
+    if not torch.equal(st_c.alive, st_g.alive.cpu()):
+        raise AssertionError("fast path: alive differs between card and CPU")
+    errs = []
+    for name in ("position", "velocity"):
+        want, got = getattr(st_c, name), getattr(st_g, name).cpu()
+        scale = want.abs().amax(dim=1, keepdim=True)
+        errs.append(float(((got - want).abs() / scale).max()))
+    if max(errs) > 1e-4:
+        raise AssertionError(f"fast path: card vs CPU rows differ by {errs} "
+                             f"of their scale")
+    log("3 kernels", f"fast path ({n} protons, default scenario, 6 "
+                     f"substeps, {n // 20} rows respawned): card vs CPU "
+                     f"alive equal, positions within {errs[0]:.3g}, "
+                     f"velocities within {errs[1]:.3g} of each row's scale "
+                     f"(tol 1e-4)")
+
+
+# -- 9. X1: the contraction-depth experiment at full size -----------------------
+
+def x1_bound_ms(s, g, m, k, p, precision):
+    """Least time for one X1 call: A, B read once and o written once, or
+    2 s g m k p operations at the tensor cores' rate (bf16 for 'default',
+    a third of TF32's for 3xTF32 'highest')."""
+    bytes_moved = 4 * (s * g * (m * k + k * p) + s * p)
+    flops = 2 * s * g * m * k * p
+    peak = (BF16_FLOPS_PER_S if precision == "default"
+            else TF32_FLOPS_PER_S / 3)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def x1_library(torch, a, b, order, precision):
+    """One PyTorch call computing the same function (never used by the
+    port): torch.matmul materialises (S, G, m, p), then the sums; f32 with
+    TF32 off for 'highest', on bf16 copies for 'default'."""
+    if order == "lhs_k_sublanes":
+        a = a.transpose(-1, -2)
+    s, g, m, _ = a.shape
+    p = b.shape[-1]
+    if precision == "default":
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    need = s * g * m * p * a.element_size()
+    free, _ = torch.cuda.mem_get_info()
+    if free < 2 * need:
+        raise AssertionError(f"the library call needs {need / 2**30:.2f} GiB "
+                             f"for its (S, G, m, p) product; "
+                             f"{free / 2**30:.2f} GiB free")
+    return lambda: torch.matmul(a, b).sum(-2, dtype=torch.float32).sum(1)
+
+
+def phase9_x1(torch, cd, mx, smi, kernel_modules):
+    s, g, m, p = 305, 32, 96, 1024
+    rows = s * g * p
+    launches, headline = 0, None
+    log("9 X1", f"{smi}: S {s}, G {g}, m {m}, p {p} (~{rows / 1e6:.1f}M "
+                f"rows), K padded to 16 (bf16) / 8 (TF32)")
+    for order in cd.ORDERS:
+        for precision in cd.PRECISIONS:
+            for k in X1_DEPTHS:
+                fn, a, b = mx.make_bench(m, k, p, g, s, order, precision)
+                torch.cuda.synchronize()
+                zero_counts(kernel_modules)
+                out = fn(a, b)
+                torch.cuda.synchronize()
+                if cd.LAUNCHES != 1:
+                    raise AssertionError(f"X1 launches {cd.LAUNCHES} != 1")
+                launches += 1
+                if tuple(out.shape) != (s, 1, p) or not bool(
+                        torch.isfinite(out).all()):
+                    raise AssertionError(f"X1 output {tuple(out.shape)} not "
+                                         f"finite/({s}, 1, {p})")
+                err, worst = compare_x1(torch, cd, a, b, order, precision)
+                k_ms = median_ms(torch, lambda: fn(a, b))
+                p_ms = median_ms(torch, lambda: cd.contraction_depth_plain(
+                    a, b, order, precision), reps=5, warm=1)
+                lib = x1_library(torch, a, b, order, precision)
+                l_ms = median_ms(torch, lib, reps=5, warm=1)
+                del lib
+                b_ms, b_by = x1_bound_ms(s, g, m, k, p, precision)
+                log("9 X1", f"{order:16s} {precision:8s} K={k:3d} (depth "
+                            f"{cd.padded_depth(k, precision):3d}): "
+                            f"{k_ms:8.4f} ms ({rows / (k_ms * 1e-3) / 1e9:.2f}"
+                            f"G rows/s), bound {b_ms:.4f} ms ({b_by}), "
+                            f"{100 * b_ms / k_ms:.1f}% of bound; plain "
+                            f"{p_ms:.4f} ms, library {l_ms:.4f} ms; vs plain "
+                            f"max|d| {err:.3g} ({worst:.2g} of sum|a||b|)")
+                if (order, precision, k) == ("lhs_k_lanes", "highest", 128):
+                    headline = dict(err=err, ms=k_ms, plain_ms=p_ms,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=l_ms)
+                del fn, a, b, out
+                torch.cuda.empty_cache()
+    return {
+        "name": "X1:contraction_depth (lhs_k_lanes, highest, K=128)",
+        "route": "cuda",
+        "source": "fusion_sim_torch/csrc/contraction_depth.cu",
+        "replaces": "examples/mxu_experiment.py:36",
+        "launches": launches, "max_abs_err": headline["err"],
+        "ms": headline["ms"], "plain_ms": headline["plain_ms"],
+        "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
+        "library_ms": headline["library_ms"],
+    }
+
+
+# -- 10. the analytic fast path (bench.py's headline) --------------------------
+
+def phase10_fast(torch, pm, sc, an, smi):
+    t0 = time.perf_counter()
+    sim = pusher_sim(pm, sc, 1024)                 # 1,048,576 protons
+    sim.enable_fast_path()
+    n = sim.spec.n_total
+    batch = 50
+    sim.step(batch)
+    torch.cuda.synchronize()
+    log("10 fast", f"set-up and warm batch ({batch} steps) "
+                   f"{time.perf_counter() - t0:.2f} s ({n} protons, 400 x "
+                   f"800, dt 2e-9)")
+    rates = []
+    t_all = time.perf_counter()
+    for _ in range(4):
+        t0 = time.perf_counter()
+        sim.step(batch)
+        torch.cuda.synchronize()
+        rates.append(batch / (time.perf_counter() - t0))
+    overall = 4 * batch / (time.perf_counter() - t_all)
+    st = sim.state
+    for name in ("position", "velocity", "alive"):
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            raise AssertionError(f"fast path state.{name} is not finite")
+    alive = float(st.alive.mean())
+    if not 0.0 < alive <= 1.0:
+        raise AssertionError(f"alive fraction {alive}")
+    scen = sim._fast_scenario
+    fresh = st.alive == 0
+    p = st.position[fresh]
+    r = torch.sqrt(p[:, 0] ** 2 + p[:, 1] ** 2) * sim.spec.radius
+    z = p[:, 2] * sim.spec.height
+    r_lo, r_hi, z_lo, z_hi = scen.source_box
+    eps = 1e-5
+    if not bool(((r <= r_hi + eps) & (z >= z_lo - eps) & (z <= z_hi + eps))
+                .all()):
+        raise AssertionError("respawned rows outside the source box")
+    rate = float(np.median(rates))
+    log("10 fast", f"{smi}: 4 timed batches of {batch} steps, "
+                   f"{', '.join(f'{x:.3f}' for x in rates)} steps/s, median "
+                   f"{rate:.3f} steps/s = {2 * n * rate:.4g} pushes/s "
+                   f"(bench.py's measure over the 4 batches: "
+                   f"{2 * n * overall:.4g} pushes/s); alive fraction "
+                   f"{alive:.6f}, {int(fresh.sum())} rows respawned in the "
+                   f"last substep, all inside the source box")
+    n_ops = profile_window(torch, "10 fast", f"{batch} steps",
+                           lambda: sim.step(batch))
+    if n_ops:
+        log("10 fast", f"{n_ops / (2 * batch):.1f} device ops a substep")
+
+    # bench.py:244-283, the drift bar: 256 protons, no sinks, 10k substeps
+    spec = pm.PusherSpec(radius=1.0, height=2.0, nr=400, nz=800, dt=2e-9,
+                         nparticles=16, particle_mass=1.67e-27,
+                         particle_charge=1.602e-19)
+    scen = an.AnalyticScenario(loops=((0.8, 2.0, -1e7), (0.8, 0.0, 1e7)),
+                               sink_box=(10.0, -10.0, 10.0),
+                               source_box=(0.0, 0.1, 0.9, 1.1))
+    rng = np.random.default_rng(1)
+    scale = np.array([1.0, 1.0, 0.5])
+    v_phys = 0.002 * (rng.random((256, 3)) - 0.5)
+    pos = (0.3 * rng.random((256, 3)) + 0.1) * scale + np.array([0, 0, 0.4])
+    state = an.FastState(torch.tensor(pos, dtype=torch.float32,
+                                      device="cuda"),
+                         torch.tensor(v_phys * scale, dtype=torch.float32,
+                                      device="cuda"),
+                         torch.ones(256, device="cuda"))
+    t0 = time.perf_counter()
+    out = an.make_fast_multi_step_fn(spec, scen, 5000)(
+        state, torch.Generator(device="cuda").manual_seed(2))
+    v1 = np.linalg.norm(out.velocity.cpu().numpy() / scale, axis=1)
+    v0 = np.linalg.norm(v_phys, axis=1)
+    worst = float(np.max(np.abs(v1 - v0) / v0))
+    if float(out.alive.min()) != 1.0 or not worst < 1e-3:
+        raise AssertionError(f"drift {worst} (bar 1e-3), min alive "
+                             f"{float(out.alive.min())}")
+    log("10 fast", f"drift check (256 protons, mirror coils, no sinks, "
+                   f"10,000 substeps, {time.perf_counter() - t0:.1f} s): max "
+                   f"per-particle |dv|/v {worst:.3g} (bar 1e-3)")
+
+
+# -- 11. the EM repair rung (kernel B4) ------------------------------------------
+
+def phase11_em_repair(torch, em, fe, Tiling2D, smi, kernel_modules,
+                      resort_rate, n: int = 10_002_432):
+    steps = 12
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    pos = (rng.random((n, 2)) * 512).astype(np.float32)
+    vel = (0.05 * rng.standard_normal((n, 3))).astype(np.float32)
+    sim = em.SortedElectromagneticPIC(
+        em_config(em), pos, vel, tiling=Tiling2D(16, 16, 1024, margin=7),
+        resort_every=10 ** 9, check_spill=False, gather_backend="fused",
+        repair=True)
+    del pos, vel
+    torch.cuda.synchronize()
+    rows = sim.state.position.shape[0]
+    log("11 EM repair", f"set-up {time.perf_counter() - t0:.2f} s ({n} "
+                        f"particles, 512^2, {rows} layout rows, tile 16 "
+                        f"margin 7, repair, resort 1e9, spill capacity "
+                        f"16384)")
+    r0 = sorted_gauss_residual(torch, em, sim)
+    t0 = time.perf_counter()
+    sim.step(steps)
+    torch.cuda.synchronize()
+    log("11 EM repair", f"warm window ({steps} steps) "
+                        f"{time.perf_counter() - t0:.3f} s")
+    zero_counts(kernel_modules)
+    rates = run_windows(torch, sim, 2, steps)
+    launches = fe.LAUNCHES
+    if launches != 2 * steps:
+        raise AssertionError(f"B4 launches {launches} != {2 * steps} steps")
+    st = sim.state
+    check_em_state(torch, st, n)
+    r1 = sorted_gauss_residual(torch, em, sim)
+    if not r1 - r0 < 5e-3 * max(r0, 1.0):
+        raise AssertionError(f"Gauss residual grew from {r0} to {r1}")
+    rate = float(np.median(rates))
+    log("11 EM repair", f"{smi}: {2 * steps} timed steps, windows "
+                        f"{', '.join(f'{x:.3f}' for x in rates)} steps/s, "
+                        f"median {rate:.3f} steps/s = {rate * n:.4g} "
+                        f"particle updates/s (phase 6, resort every 12, tile "
+                        f"32 margin 6: {resort_rate:.3f} steps/s); B4 "
+                        f"launches {launches}; spill patched {st.spill}, "
+                        f"dropped {st.spill_dropped}, unplaced "
+                        f"{int(st.unplaced)}; Gauss residual {r0:.6g} -> "
+                        f"{r1:.6g} over {st.step} steps")
+    profile_window(torch, "11 EM repair", f"{steps} steps",
+                   lambda: sim.step(steps))
+
+
 def main() -> None:
     try:
         import torch
@@ -1453,7 +1878,10 @@ def main() -> None:
         from fusion_sim_torch.models import electrostatic as es
         from fusion_sim_torch.models import pusher as pm
         from fusion_sim_torch.models import pusher_sorted as ps
+        from fusion_sim_torch.examples import mxu_experiment as mx
         from fusion_sim_torch.ops import _build
+        from fusion_sim_torch.ops import analytic as an
+        from fusion_sim_torch.ops import contraction_depth as cd
         from fusion_sim_torch.ops import fused_em as fe
         from fusion_sim_torch.ops import fused_em3d as fe3
         from fusion_sim_torch.ops import fused_pic as fp
@@ -1499,10 +1927,12 @@ def main() -> None:
     phase3_pusher(torch, pm, ps, sc, fpu, sg, Tiling2D, dev)
     phase3_em(torch, em, fe, Tiling2D, build_padded_layout, dev)
     phase3_3d(torch, es, em, f3, fe3, Tiling3D, build_padded_layout, dev)
+    phase3_x1(torch, cd, dev)
+    phase3_slice(torch, es, em, pm, ps, an, sc, Tiling2D, Tiling3D, dev)
     log("3 kernels", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the ES main path ----------------------------------------------------
-    kernel_modules = (fp, fpu, sg, fe, f3, fe3)
+    kernel_modules = (fp, fpu, sg, fe, f3, fe3, cd)
     b1 = phase4_es_main(torch, es, fp, dev, tiling, smi, kernel_modules)
     torch.cuda.empty_cache()
     log("4 ES", f"done at {time.perf_counter() - t_start:.1f} s")
@@ -1517,7 +1947,8 @@ def main() -> None:
     log("5b pallas", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 6. the EM main path at full size, 6b. its pallas route -----------------
-    b4 = phase6_em_main(torch, em, fe, Tiling2D, smi, kernel_modules)
+    b4, em_resort_rate = phase6_em_main(torch, em, fe, Tiling2D, smi,
+                                        kernel_modules)
     torch.cuda.empty_cache()
     log("6 EM", f"done at {time.perf_counter() - t_start:.1f} s")
     b3_em = phase6b_em_pallas(torch, em, sg, Tiling2D, smi, kernel_modules)
@@ -1529,9 +1960,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     log("7 ES 3D", f"done at {time.perf_counter() - t_start:.1f} s")
     b6 = phase8_em3d_main(torch, em, fe3, Tiling3D, smi, kernel_modules)
+    torch.cuda.empty_cache()
     log("8 EM 3D", f"done at {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [b1, b2, b3, b4, b3_em, b5, b6]}),
+    # -- 9. X1 at full size, 10. the fast path, 11. the EM repair rung --------
+    x1 = phase9_x1(torch, cd, mx, smi, kernel_modules)
+    log("9 X1", f"done at {time.perf_counter() - t_start:.1f} s")
+    phase10_fast(torch, pm, sc, an, smi)
+    torch.cuda.empty_cache()
+    log("10 fast", f"done at {time.perf_counter() - t_start:.1f} s")
+    phase11_em_repair(torch, em, fe, Tiling2D, smi, kernel_modules,
+                      em_resort_rate)
+    log("11 EM repair", f"done at {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": [b1, b2, b3, b4, b3_em, b5, b6, x1]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

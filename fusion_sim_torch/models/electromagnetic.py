@@ -16,7 +16,8 @@ to the gamma-corrected form (velocity then stores u = gamma v).
 ``SortedElectromagneticPIC(gather_backend='fused')`` is the main path:
 particles live in the padded tile-sorted layout, and one fused kernel per
 step does gather + kick + drift + deposit (ops/fused_em.py in 2D,
-ops/fused_em3d.py in 3D) before the Yee update.
+ops/fused_em3d.py in 3D) before the Yee update; ``repair=True`` relocates
+spilled rows into their new tile every step (ops/repair.py).
 
 The reference's ``jit``/``lax.scan``/``lax.cond`` become plain Python
 control flow; step and spill counters are Python ints.  Every entry point
@@ -40,12 +41,11 @@ from ..ops.fused_em import fused_em2d_substep
 from ..ops.fused_em3d import fused_em3d_substep
 from ..ops.interp import cic_deposit, cic_gather_packed, spill_rows
 from ..ops.precision import PRECISIONS, resolve_precision
+from ..ops.repair import drain_check, init_free_list, repair_relocate
 from ..ops.sorted_deposit import (Tiling2D, Tiling3D, build_padded_layout,
                                   esirkepov_sorted_2d, esirkepov_sorted_3d,
                                   gather_sorted_2d, gather_sorted_3d)
 from ..ops.sorted_gather import gather_sorted_2d_window
-
-_ROADMAP = "is not ported yet (ROADMAP.md Queue A, {})"
 
 
 class EMState(NamedTuple):
@@ -316,6 +316,11 @@ class SortedEMState(NamedTuple):
     spill: int               # cumulative out-of-window rows
     spill_dropped: int       # cumulative rows past spill_capacity (their
                              # deposits are lost even with the fallback on)
+    # incremental layout repair (repair=True) only:
+    free_idx: torch.Tensor | None = None  # (n_tiles, F) dead-slot stacks
+    free_cnt: torch.Tensor | None = None  # (n_tiles,)
+    unplaced: torch.Tensor | None = None  # cumulative spills left in place
+                                          # (no free slot), on the device
 
 
 def sorted_em_state_from_numpy(blob: dict, device=None) -> SortedEMState:
@@ -325,6 +330,8 @@ def sorted_em_state_from_numpy(blob: dict, device=None) -> SortedEMState:
     dev = resolve_device(device)
 
     def t(key, dtype):
+        if blob.get(key) is None:
+            return None
         return torch.tensor(np.asarray(blob[key], dtype), device=dev)
 
     return SortedEMState(
@@ -332,7 +339,9 @@ def sorted_em_state_from_numpy(blob: dict, device=None) -> SortedEMState:
         tile_id=t("tile_id", np.int32), valid=t("valid", np.bool_),
         e=t("e", np.float32), b=t("b", np.float32),
         step=int(blob.get("step", 0)), spill=int(blob.get("spill", 0)),
-        spill_dropped=int(blob.get("spill_dropped", 0)))
+        spill_dropped=int(blob.get("spill_dropped", 0)),
+        free_idx=t("free_idx", np.int64), free_cnt=t("free_cnt", np.int64),
+        unplaced=t("unplaced", np.int64))
 
 
 class SortedElectromagneticPIC:
@@ -352,8 +361,11 @@ class SortedElectromagneticPIC:
     runs ``gather_sorted_3d`` and ``esirkepov_sorted_3d``, and 'pallas'
     takes the same route, as in the reference: the windowed gather kernel
     is 2D only.  Constructor arguments, validation and defaults are the
-    reference's, less the ``repair_*``/``eager_capacity`` tuning of the
-    repair path: ``repair=True`` raises NotImplementedError.
+    reference's.  ``repair=True`` (on every gather backend) relocates the
+    spilled rows into dead slots of their new tile each step, with
+    ``repair_free_slots``, ``repair_eager`` and ``eager_capacity`` as in
+    ``SortedElectrostaticPIC``; the resort then runs at the start of each
+    ``resort_every`` window or when the free stacks drain.
     """
 
     def __init__(self, config: EMConfig, position, velocity,
@@ -361,7 +373,9 @@ class SortedElectromagneticPIC:
                  check_spill: bool = True, spill_fallback: bool = True,
                  spill_capacity: int = 16384, gather_backend: str = "xla",
                  pallas_precision: str | None = None, repair: bool = False,
-                 device=None, _state: dict | None = None):
+                 repair_free_slots: int = 256, repair_eager: int = 0,
+                 eager_capacity: int | None = None, device=None,
+                 _state: dict | None = None):
         self.spill_fallback = spill_fallback
         self.spill_capacity = int(spill_capacity)
         if gather_backend not in ("xla", "pallas", "fused"):
@@ -380,14 +394,27 @@ class SortedElectromagneticPIC:
         self.pallas_precision = pallas_precision
         if repair and not spill_fallback:
             raise ValueError("repair=True requires spill_fallback=True")
+        self.repair = repair
+        self.repair_free_slots = int(repair_free_slots)
+        # repair_eager=k: also relocate rows within k cells of leaving their
+        # window, carrying their own exact values (ops/repair.py)
+        self.repair_eager = int(repair_eager)
+        self.eager_capacity = (int(spill_capacity) if eager_capacity is None
+                               else int(eager_capacity))
+        if self.repair_eager and self.eager_capacity <= 0:
+            raise ValueError(f"eager_capacity={eager_capacity} must be > 0")
         self.config = config
         if config.n_dim not in (2, 3):
             raise ValueError("the sorted EM model is 2D3V or 3D")
         self.tiling = tiling or (Tiling2D() if config.n_dim == 2
                                  else Tiling3D())
-        if repair:
-            raise NotImplementedError(
-                "repair=True " + _ROADMAP.format("item 5, repair/eager"))
+        if self.repair_eager:
+            if not repair:
+                raise ValueError("repair_eager requires repair=True")
+            if not 0 < self.repair_eager <= self.tiling.margin:
+                raise ValueError(
+                    f"repair_eager={self.repair_eager} must be in "
+                    f"1..margin ({self.tiling.margin})")
         resolve_precision(pallas_precision, self.tiling.dtype)
         self.resort_every = resort_every
         self.check_spill = check_spill
@@ -399,11 +426,15 @@ class SortedElectromagneticPIC:
         self._since_sort = 0
         self._spill_seen = 0
         self._dropped_seen = 0
+        self._unplaced_seen = 0
+        self._need_resort = False
+        self._n_tiles = math.prod(self.tiling.n_tiles(config.grid_shape))
         self._step_once = (self._step_fused if gather_backend == "fused"
                            else self._step_split)
         if _state is not None:                              # from_state
             self.state = sorted_em_state_from_numpy(_state, dev)
             self.n_real = int(self.state.valid.sum())
+            self._repair_state()
             return
         n = np.asarray(position).shape[0]
         if n % self.tiling.block:
@@ -417,12 +448,29 @@ class SortedElectromagneticPIC:
                               device=dev)
         tid, pos_p, v0, v1, v2, valid_p, _ = build_padded_layout(
             pos, shape, self.tiling, vel[:, 0], vel[:, 1], vel[:, 2],
-            derive_valid=True)
+            reserve=repair, spread=repair, derive_valid=True)
         self.state = SortedEMState(
             position=pos_p, velocity=torch.stack([v0, v1, v2], dim=-1),
             tile_id=tid, valid=valid_p, e=_fields_from(e, shape, dev),
             b=_fields_from(b, shape, dev), step=0, spill=0, spill_dropped=0)
         self.n_real = n
+        self._repair_state()
+
+    def _repair_state(self) -> None:
+        """The repair stacks and counter, where repair is on and missing."""
+        if not self.repair:
+            return
+        if self.state.unplaced is None:
+            self.state = self.state._replace(unplaced=torch.zeros(
+                (), dtype=torch.int64, device=self.device))
+        if self.state.free_idx is None:
+            self._rebuild_free_list()
+
+    def _rebuild_free_list(self) -> None:
+        fidx, fcnt = init_free_list(self.state.tile_id, self.state.valid,
+                                    self._n_tiles, self.tiling.block,
+                                    self.repair_free_slots)
+        self.state = self.state._replace(free_idx=fidx, free_cnt=fcnt)
 
     @classmethod
     def from_state(cls, config: EMConfig, blob: dict, tiling=None,
@@ -468,10 +516,25 @@ class SortedElectromagneticPIC:
         idx = spill_rows(mask, count, cap, mask.shape[0])[0]
         return count, idx[:min(count, cap)]
 
-    def _finish(self, state, x1, velocity, j, spill) -> None:
-        """The Yee update, fillers zeroed, counters advanced."""
+    def _relocated(self, state, x1, velocity, idx, x1_k, vel_k, in_win):
+        """With repair on: the patched rows ``idx`` (values ``x1_k``/
+        ``vel_k``) and, with ``repair_eager``, the band rows moved into
+        their new tile (``ops/repair.repair_relocate``); returns ``(x1,
+        velocity, state updates)``."""
+        if not self.repair:
+            return x1, velocity, {}
+        x1, velocity, _, extra = repair_relocate(
+            state, x1, velocity, idx, None, x1_k, vel_k,
+            self.config.grid_shape, self.tiling, self._n_tiles,
+            self.config.n_dim, in_win=in_win, eager_keep=self.repair_eager,
+            eager_cap=self.eager_capacity)
+        return x1, velocity, extra
+
+    def _finish(self, state, x1, velocity, j, spill, **extra) -> None:
+        """The Yee update, fillers zeroed (on the validity after any
+        relocation), counters advanced."""
         e_new, b_new = yee_update(self.config, state.e, state.b, j)
-        valid = state.valid[:, None]
+        valid = extra.get("valid", state.valid)[:, None]
         if self.spill_fallback:
             dropped = max(spill - self.spill_capacity, 0)
         else:
@@ -480,7 +543,7 @@ class SortedElectromagneticPIC:
             position=torch.where(valid, x1, 0.0),
             velocity=torch.where(valid, velocity, 0.0),
             e=e_new, b=b_new, step=state.step + 1, spill=state.spill + spill,
-            spill_dropped=state.spill_dropped + dropped)
+            spill_dropped=state.spill_dropped + dropped, **extra)
 
     def _step_fused(self) -> None:
         """One kernel covers gather + kick + drift + Esirkepov; the Yee
@@ -498,7 +561,9 @@ class SortedElectromagneticPIC:
             relativistic=config.relativistic,
             precision=self.pallas_precision or "highest")
         # exact re-push + deposit of out-of-window rows, from their inputs
-        spill, idx = self._spilled(~in_win & state.valid)
+        spill_mask = ~in_win & state.valid
+        spill, idx = self._spilled(spill_mask)
+        x1w_k = vel_k = None
         if idx is not None:
             x0_k = torch.remainder(state.position[idx], grid_f)
             eb_k = cic_gather_packed(table, x0_k, shape)
@@ -507,9 +572,13 @@ class SortedElectromagneticPIC:
             cv_k = _coord_velocity(config, vel_k)
             x1_k = x0_k + config.dt * cv_k[:, :config.n_dim] / dxv
             j = j + _deposit(config, x0_k, x1_k, cv_k, config.charge)
-            x1[idx] = torch.remainder(x1_k, grid_f)
-            velocity[idx] = vel_k
-        self._finish(state, x1, velocity, j, spill)
+            x1w_k = torch.remainder(x1_k, grid_f)
+            if not self.repair:
+                x1[idx] = x1w_k
+                velocity[idx] = vel_k
+        x1, velocity, extra = self._relocated(state, x1, velocity, idx,
+                                              x1w_k, vel_k, ~spill_mask)
+        self._finish(state, x1, velocity, j, spill, **extra)
 
     def _step_split(self) -> None:
         """Windowed gather (the kernel for 'pallas', plain for 'xla'),
@@ -556,7 +625,12 @@ class SortedElectromagneticPIC:
             # (charge conservation holds while spill stays under capacity)
             j = j + _deposit(config, x0[idx], x1[idx], coord_v[idx],
                              charge[idx])
-        self._finish(state, torch.remainder(x1, grid_f), velocity, j, spill)
+        x1 = torch.remainder(x1, grid_f)
+        # relocation carries each patched row's own (exact) values
+        x1, velocity, extra = self._relocated(
+            state, x1, velocity, idx, None if idx is None else x1[idx],
+            None if idx is None else velocity[idx], ~spill_mask)
+        self._finish(state, x1, velocity, j, spill, **extra)
 
     def _resort(self) -> None:
         """Rebuild the layout (one sort); fillers and invalid rows sink to
@@ -567,31 +641,43 @@ class SortedElectromagneticPIC:
         tid, pos_p, v0, v1, v2, valid_p, _ = build_padded_layout(
             s.position, self.config.grid_shape, self.tiling,
             s.velocity[:, 0], s.velocity[:, 1], s.velocity[:, 2],
-            valid=s.valid, derive_valid=True)
+            valid=s.valid, reserve=self.repair, spread=self.repair,
+            derive_valid=True)
         self.state = s._replace(
             position=pos_p[:n_state],
             velocity=torch.stack([v0[:n_state], v1[:n_state], v2[:n_state]],
                                  dim=-1),
             tile_id=tid[:n_state], valid=valid_p[:n_state])
+        if self.repair:
+            self._rebuild_free_list()
 
     def step(self, n: int = 1) -> None:
         """Advance ``n`` steps with the reference's resort cadence: a
         whole window taken from a fresh sort runs ``resort_every`` steps
         and THEN resorts (the counter stays 0); partial chunks count toward
-        the next window, whose resort runs at the start of a later call."""
+        the next window, whose resort runs at the start of a later call.
+        With repair the resort runs at the start of a window or after the
+        free stacks drained, and a call ends with the drain check (one
+        host read)."""
         done = 0
         while done < n:
-            if self._since_sort >= self.resort_every:
+            if self._since_sort >= self.resort_every or self._need_resort:
                 self._resort()
                 self._since_sort = 0
+                self._need_resort = False
             k = min(n - done, self.resort_every - self._since_sort)
             for _ in range(k):
                 self._step_once()
             done += k
-            if k == self.resort_every:
+            if k == self.resort_every and not self.repair:
                 self._resort()
             else:
                 self._since_sort += k
+        if self.repair:
+            cap = max(self.spill_capacity,
+                      self.eager_capacity if self.repair_eager else 0)
+            self._need_resort, self._unplaced_seen, _ = drain_check(
+                self.state, self._unplaced_seen, 0, cap, self.n_real, n)
         if self.check_spill:
             self._check_spill()
 

@@ -13,7 +13,10 @@ a static neutralizing background:
 ``SortedElectrostaticPIC(backend='pallas')`` is the main path: particles
 live in the padded tile-sorted layout, and one fused kernel per step does
 gather + kick + drift + deposit (ops/fused_pic.py in 2D, ops/fused_pic3d.py
-in 3D) between FFT solves.
+in 3D) between FFT solves.  ``backend='xla'`` runs the same step in plain
+PyTorch (windowed deposit and gather of ops/sorted_deposit.py), and
+``repair=True`` relocates spilled rows into their new tile every step
+(ops/repair.py) instead of waiting for the resort.
 
 The reference's ``jit``/``lax.scan``/``lax.cond`` become plain Python
 control flow; step and spill counters are Python ints.  Every entry point
@@ -36,9 +39,11 @@ from ..ops.fused_pic import fused_es2d_substep
 from ..ops.fused_pic3d import fused_es3d_substep
 from ..ops.interp import cic_deposit_packed, cic_gather_packed, spill_rows
 from ..ops.precision import resolve_precision
+from ..ops.repair import drain_check, init_free_list, repair_relocate
 from ..ops.solvers import gradient_periodic, poisson_fft
 from ..ops.sorted_deposit import (Tiling2D, Tiling3D, build_padded_layout,
-                                  deposit_sorted_2d, deposit_sorted_3d)
+                                  deposit_sorted_2d, deposit_sorted_3d,
+                                  gather_sorted_2d, gather_sorted_3d)
 
 
 class ESState(NamedTuple):
@@ -182,9 +187,6 @@ class ElectrostaticPIC:
 # Sorted-layout variant (2D and 3D): the fused-kernel main path
 # ---------------------------------------------------------------------------
 
-_ROADMAP = "is not ported yet (ROADMAP.md Queue A, {})"
-
-
 class SortedESState(NamedTuple):
     """Padded tile-sorted particle layout (fillers: valid=False, weight 0)."""
 
@@ -195,7 +197,12 @@ class SortedESState(NamedTuple):
     step: int
     spill: int               # cumulative out-of-margin rows (patched)
     spill_dropped: int       # cumulative rows past spill_capacity
-    rho: torch.Tensor | None = None  # charge at the current positions
+    rho: torch.Tensor | None = None  # pallas: charge at current positions
+    # incremental layout repair (repair=True) only:
+    free_idx: torch.Tensor | None = None  # (n_tiles, F) dead-slot stacks
+    free_cnt: torch.Tensor | None = None  # (n_tiles,)
+    unplaced: torch.Tensor | None = None  # cumulative spills left in place
+                                          # (no free slot), on the device
 
 
 def sorted_state_from_numpy(blob: dict, device=None) -> SortedESState:
@@ -205,6 +212,8 @@ def sorted_state_from_numpy(blob: dict, device=None) -> SortedESState:
     dev = resolve_device(device)
 
     def t(key, dtype):
+        if blob.get(key) is None:
+            return None
         return torch.tensor(np.asarray(blob[key], dtype), device=dev)
 
     return SortedESState(
@@ -212,7 +221,8 @@ def sorted_state_from_numpy(blob: dict, device=None) -> SortedESState:
         tile_id=t("tile_id", np.int32), valid=t("valid", np.bool_),
         step=int(blob.get("step", 0)), spill=int(blob.get("spill", 0)),
         spill_dropped=int(blob.get("spill_dropped", 0)),
-        rho=t("rho", np.float32) if blob.get("rho") is not None else None)
+        rho=t("rho", np.float32), free_idx=t("free_idx", np.int64),
+        free_cnt=t("free_cnt", np.int64), unplaced=t("unplaced", np.int64))
 
 
 class SortedElectrostaticPIC:
@@ -227,9 +237,19 @@ class SortedElectrostaticPIC:
     patched exactly, up to ``spill_capacity`` a step.
 
     Constructor arguments, validation and defaults are the reference's;
-    3D takes a ``Tiling3D``.  ``backend='pallas'`` (the fused kernel:
-    ops/fused_pic.py in 2D, ops/fused_pic3d.py in 3D) is the ported path;
-    ``backend='xla'`` and ``repair=True`` raise NotImplementedError.
+    3D takes a ``Tiling3D``.  ``backend='pallas'`` runs the fused kernel
+    (ops/fused_pic.py in 2D, ops/fused_pic3d.py in 3D), ``backend='xla'``
+    the plain windowed deposit and gather.
+
+    ``repair=True`` relocates the spilled rows every step into dead slots
+    of their new tile (ops/repair.py; the layout is built with ``reserve``
+    and ``spread``); the full resort then runs every ``resort_every`` steps
+    or when the free stacks drain: a ``step()`` call reads the device's
+    ``unplaced`` count once and schedules a resort for the next call when
+    it grew by more than max(64, capacity // 8) a step.  ``repair_eager=k``
+    (1..margin) also relocates rows within k cells of leaving their
+    window, carrying their own exact values, up to ``eager_capacity`` rows
+    a step; ``repair_free_slots`` sizes each tile's stack.
     """
 
     def __init__(self, config: ESConfig, position, velocity,
@@ -243,8 +263,8 @@ class SortedElectrostaticPIC:
                  pallas_precision: str | None = None, device=None):
         self._configure(config, tiling, resort_every, check_spill,
                         spill_fallback, spill_capacity, spill_tiers, backend,
-                        repair, repair_eager, eager_capacity,
-                        pallas_precision, device)
+                        repair, repair_free_slots, repair_eager,
+                        eager_capacity, pallas_precision, device)
         n = np.asarray(position).shape[0]
         if n % self.tiling.block:
             raise ValueError(f"particle count must be a multiple of "
@@ -259,11 +279,23 @@ class SortedElectrostaticPIC:
             device=self.device)
         tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
             pos, config.grid_shape, self.tiling,
-            *[vel[:, a] for a in range(ndim)], derive_valid=True)
+            *[vel[:, a] for a in range(ndim)], reserve=repair,
+            spread=repair, derive_valid=True)
         self.state = SortedESState(
             position=pos_p, velocity=torch.stack(v_cols, dim=-1),
             tile_id=tid, valid=valid_p, step=0, spill=0, spill_dropped=0)
-        self.state = self.state._replace(rho=self._initial_rho())
+        self._finish_state()
+
+    def _finish_state(self) -> None:
+        """The carried rho (pallas) and the repair stacks, where missing."""
+        if self.backend == "pallas" and self.state.rho is None:
+            self.state = self.state._replace(rho=self._initial_rho())
+        if self.repair:
+            if self.state.unplaced is None:
+                self.state = self.state._replace(unplaced=torch.zeros(
+                    (), dtype=torch.int64, device=self.device))
+            if self.state.free_idx is None:
+                self._rebuild_free_list()
 
     @classmethod
     def from_state(cls, config: ESConfig, blob: dict, tiling=None,
@@ -276,19 +308,18 @@ class SortedElectrostaticPIC:
             self, config, None, None, tiling=tiling, **kwargs)
         bound.apply_defaults()
         kw = dict(bound.arguments)
-        for name in ("self", "position", "velocity", "repair_free_slots"):
+        for name in ("self", "position", "velocity"):
             del kw[name]
         self._configure(**kw)
         self.state = sorted_state_from_numpy(blob, self.device)
         self.n_real = int(self.state.valid.sum())
-        if self.state.rho is None:
-            self.state = self.state._replace(rho=self._initial_rho())
+        self._finish_state()
         return self
 
     def _configure(self, config, tiling, resort_every, check_spill,
                    spill_fallback, spill_capacity, spill_tiers, backend,
-                   repair, repair_eager, eager_capacity, pallas_precision,
-                   device):
+                   repair, repair_free_slots, repair_eager, eager_capacity,
+                   pallas_precision, device):
         if config.n_dim not in (2, 3):
             raise ValueError("sorted layout variant is 2D or 3D")
         if backend not in ("xla", "pallas"):
@@ -316,9 +347,12 @@ class SortedElectrostaticPIC:
             self.spill_tiers = ()
         if repair and not spill_fallback:
             raise ValueError("repair=True requires spill_fallback=True")
-        eager_capacity = (int(spill_capacity) if eager_capacity is None
-                          else int(eager_capacity))
-        if repair_eager and eager_capacity <= 0:
+        self.repair = repair
+        self.repair_free_slots = int(repair_free_slots)
+        self.repair_eager = int(repair_eager)
+        self.eager_capacity = (int(spill_capacity) if eager_capacity is None
+                               else int(eager_capacity))
+        if repair_eager and self.eager_capacity <= 0:
             raise ValueError(f"eager_capacity={eager_capacity} must be > 0")
         if pallas_precision not in (None, "highest", "exact_bf16",
                                     "exact_bf16_pack", "exact_bf16_pack2",
@@ -335,14 +369,6 @@ class SortedElectrostaticPIC:
                 raise ValueError(
                     f"repair_eager={repair_eager} must be in "
                     f"1..margin ({self.tiling.margin})")
-        if backend != "pallas":
-            raise NotImplementedError(
-                "backend='xla' " + _ROADMAP.format(
-                    "item 5, repair/eager and backend='xla' for ES"))
-        if repair:
-            raise NotImplementedError(
-                "repair=True " + _ROADMAP.format(
-                    "item 5, repair/eager and backend='xla' for ES"))
         self.pallas_precision = pallas_precision
         resolve_precision(pallas_precision, self.tiling.dtype)
         self.config = config
@@ -353,7 +379,14 @@ class SortedElectrostaticPIC:
         self._since_sort = 0
         self._spill_seen = 0
         self._dropped_seen = 0
+        self._unplaced_seen = 0
         self._need_resort = False
+
+    def _rebuild_free_list(self) -> None:
+        fidx, fcnt = init_free_list(self.state.tile_id, self.state.valid,
+                                    self._n_tiles, self.tiling.block,
+                                    self.repair_free_slots)
+        self.state = self.state._replace(free_idx=fidx, free_cnt=fcnt)
 
     def _check_spill(self):
         # report the delta since the previous check, not the cumulative
@@ -393,7 +426,32 @@ class SortedElectrostaticPIC:
         pos = torch.remainder(self.state.position, self._grid_f())
         return cic_deposit_packed(pos, self._weights(), self.config.grid_shape)
 
-    def _step_once(self) -> None:
+    def _patch_rows(self, spill_mask: torch.Tensor, spill: int):
+        """The first min(spill, capacity) rows of ``spill_mask`` in row
+        order, compacted at the smallest tier that covers ``spill``."""
+        cap = next((c for c in self.spill_tiers if spill <= c),
+                   self.spill_capacity)
+        return spill_rows(spill_mask, spill, cap,
+                          spill_mask.shape[0])[0][:min(spill, cap)]
+
+    def _repair(self, state, pos, vel, idx, pos_k, vel_k, in_win):
+        """``ops/repair.repair_relocate`` with this model's settings;
+        returns ``(pos, vel, state updates)``."""
+        pos, vel, _, extra = repair_relocate(
+            state, pos, vel, idx, None, pos_k, vel_k, self.config.grid_shape,
+            self.tiling, self._n_tiles, self.config.n_dim, in_win=in_win,
+            eager_keep=self.repair_eager, eager_cap=self.eager_capacity)
+        return pos, vel, extra
+
+    def _advance(self, state, pos, vel, spill, **extra) -> None:
+        dropped = max(spill - self.spill_capacity, 0) if self.spill_fallback \
+            else spill
+        self.state = state._replace(
+            position=pos, velocity=vel, step=state.step + 1,
+            spill=state.spill + spill,
+            spill_dropped=state.spill_dropped + dropped, **extra)
+
+    def _step_pallas(self) -> None:
         """Solve E from the carried rho, then ONE fused kernel does gather +
         kick + drift + deposit; spilled rows are re-pushed exactly."""
         config, state = self.config, self.state
@@ -414,15 +472,11 @@ class SortedElectrostaticPIC:
         spill_mask = (~in_win) & state.valid
         # the one host read of the step: it picks the patch tier
         spill = int(spill_mask.sum())
+        idx = pos_k = vel_k = None
         if self.spill_fallback and spill:
-            # exact patch of the rows that left their window: compacted at
-            # the smallest tier that covers this step's spill count; rows
-            # beyond spill_capacity stay frozen and count as dropped
-            cap = next((c for c in self.spill_tiers if spill <= c),
-                       self.spill_capacity)
-            n_total = pos.shape[0]
-            idx = spill_rows(spill_mask, spill, cap, n_total)[0][:min(spill,
-                                                                     cap)]
+            # exact patch of the rows that left their window; rows beyond
+            # spill_capacity stay frozen and count as dropped
+            idx = self._patch_rows(spill_mask, spill)
             grid_f = self._grid_f()
             dx = torch.tensor(config.cell_size, dtype=torch.float32,
                               device=self.device)
@@ -431,14 +485,61 @@ class SortedElectrostaticPIC:
             vel_k = state.velocity[idx] + qm_dt * e_k
             pos_k = torch.remainder(pos_k + config.dt * vel_k / dx, grid_f)
             rho_new = rho_new + cic_deposit_packed(pos_k, w[idx], shape)
+        extra = {}
+        if self.repair:
+            # patched rows carry their exact values to their new tile;
+            # band rows (eager) carry their own kernel outputs
+            pos, vel, extra = self._repair(state, pos, vel, idx, pos_k, vel_k,
+                                           in_win)
+        elif idx is not None:
             pos[idx] = pos_k
             vel[idx] = vel_k
-        dropped = max(spill - self.spill_capacity, 0) if self.spill_fallback \
-            else spill
-        self.state = state._replace(
-            position=pos, velocity=vel, rho=rho_new, step=state.step + 1,
-            spill=state.spill + spill,
-            spill_dropped=state.spill_dropped + dropped)
+        self._advance(state, pos, vel, spill, rho=rho_new, **extra)
+
+    def _step_xla(self) -> None:
+        """The same step in plain PyTorch: windowed deposit, exact patch of
+        the out-of-window rows, FFT solve, windowed gather (patched), kick
+        and drift (the reference's ``_make_step``)."""
+        config, state = self.config, self.state
+        shape = config.grid_shape
+        two_d = config.n_dim == 2
+        deposit = deposit_sorted_2d if two_d else deposit_sorted_3d
+        gather = gather_sorted_2d if two_d else gather_sorted_3d
+        grid_f = self._grid_f()
+        dx = torch.tensor(config.cell_size, dtype=torch.float32,
+                          device=self.device)
+        qm_dt = config.charge / config.mass * config.dt
+        w = self._weights()
+        rho, spill_t, spill_mask = deposit(state.position, w, state.tile_id,
+                                           shape, self.tiling)
+        spill = int(spill_t)            # the one host read of the step
+        idx = None
+        if self.spill_fallback and spill:
+            idx = self._patch_rows(spill_mask, spill)
+            rho = rho + cic_deposit_packed(
+                torch.remainder(state.position[idx], grid_f), w[idx], shape)
+        if config.neutralizing_background:
+            rho = rho - torch.sum(rho) / math.prod(shape)
+        _, e_grid = solve_fields(config, rho)
+        # gather and deposit share the window criterion at the same
+        # positions, so the deposit's patch rows patch both
+        e_at_p, _ = gather(e_grid, state.position, state.tile_id, shape,
+                           self.tiling)
+        if idx is not None:
+            e_at_p[idx] = cic_gather_packed(
+                e_grid, torch.remainder(state.position[idx], grid_f), shape)
+        velocity = state.velocity + qm_dt * e_at_p
+        velocity = torch.where(state.valid[:, None], velocity, 0.0)
+        position = state.position + (config.dt * velocity) / dx
+        position = torch.remainder(position, grid_f)
+        extra = {}
+        if self.repair:
+            pos_k = vel_k = None
+            if idx is not None:
+                pos_k, vel_k = position[idx], velocity[idx]
+            position, velocity, extra = self._repair(
+                state, position, velocity, idx, pos_k, vel_k, ~spill_mask)
+        self._advance(state, position, velocity, spill, **extra)
 
     def _resort(self) -> None:
         """Rebuild the layout (one sort); fillers and invalid rows sink to
@@ -447,35 +548,53 @@ class SortedElectrostaticPIC:
         n_state = s.position.shape[0]
         tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
             s.position, self.config.grid_shape, self.tiling,
-            *s.velocity.unbind(-1), valid=s.valid, derive_valid=True)
+            *s.velocity.unbind(-1), valid=s.valid, reserve=self.repair,
+            spread=self.repair, derive_valid=True)
         self.state = s._replace(
             position=pos_p[:n_state],
             velocity=torch.stack([v[:n_state] for v in v_cols], dim=-1),
             tile_id=tid[:n_state], valid=valid_p[:n_state])
+        if self.repair:
+            self._rebuild_free_list()
 
     def step(self, n: int = 1) -> None:
-        """Advance ``n`` steps with the reference's resort cadence: a call
-        spanning a whole window runs ``resort_every`` steps and THEN
-        resorts (the counter stays 0); partial chunks count toward the
-        next window, whose resort runs at the start of a later call."""
+        """Advance ``n`` steps with the reference's resort cadence: without
+        repair, a call spanning a whole window runs ``resort_every`` steps
+        and THEN resorts (the counter stays 0); partial chunks count toward
+        the next window, whose resort runs at the start of a later call.
+        With repair the resort runs at the start of a window, and a call
+        ends with the drain check."""
+        step_once = (self._step_pallas if self.backend == "pallas"
+                     else self._step_xla)
         done = 0
         while done < n:
             if self._since_sort >= self.resort_every or self._need_resort:
                 self._resort()
                 self._since_sort = 0
                 self._need_resort = False
-            if (self._since_sort == 0 and n - done >= self.resort_every
+            if (not self.repair and self._since_sort == 0
+                    and n - done >= self.resort_every
                     and self.resort_every <= 128):
                 for _ in range(self.resort_every):
-                    self._step_once()
+                    step_once()
                 self._resort()
                 done += self.resort_every
                 continue
             k = min(n - done, self.resort_every - self._since_sort)
             for _ in range(k):
-                self._step_once()
+                step_once()
             self._since_sort += k
             done += k
+        if self.repair:
+            # a small unplaced trickle is normal (a row whose target tile
+            # is full keeps its exact patch and retries); a large delta
+            # means the stacks drained: resort at the next call.  Scaled to
+            # the buffer that carries the flux (eager configurations ride
+            # eager_capacity)
+            cap = max(self.spill_capacity,
+                      self.eager_capacity if self.repair_eager else 0)
+            self._need_resort, self._unplaced_seen, _ = drain_check(
+                self.state, self._unplaced_seen, 0, cap, self.n_real, n)
         if self.check_spill:
             self._check_spill()
 

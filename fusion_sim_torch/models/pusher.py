@@ -15,7 +15,9 @@ half-steps, each a velocity pass (coefficient gather + Boris rotation, or
 thermal re-init of fresh rows) and a position pass (drift + sink/respawn).
 ``enable_sorted_path`` switches to the tile-sorted layout
 (models/pusher_sorted.py), whose ``backend='fused'`` runs kernel B2 and
-``backend='pallas'`` kernel B3.
+``backend='pallas'`` kernel B3; ``enable_fast_path`` switches to the
+analytic gather-free path (ops/analytic.py), which recomputes B at each
+particle from the field sources the set-up methods record (``_sources``).
 
 Random numbers: the reference's ``jax.random`` key becomes a
 ``torch.Generator`` on the model's device (Philox on the card), which
@@ -23,14 +25,14 @@ cannot replay JAX's streams.  Step functions therefore take the substep
 uniforms as an argument; the shell draws them from its generator.  Every
 entry point runs on the CUDA card unless given ``device="cpu"``.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-``enable_fast_path`` (the analytic path), ``add_spindle_cusp_plasma_field``
-and ``enable_sorted_path(repair=True)``.
+Not ported yet (raises NotImplementedError naming its ROADMAP item):
+``add_spindle_cusp_plasma_field``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -208,8 +210,9 @@ class CylindricalParticlePusher:
     """Stateful shell with the reference's API surface
     (``makeCylindricalParticlePusher``, empic.js:30-1529): ``set``,
     ``add_current_loop``, ``add_current_z``, ``add_bz``, ``add_btheta``,
-    ``precalc``, ``step``, ``density``, ``get_state``/``set_state`` and the
-    sorted path.  ``device`` None means the CUDA card."""
+    ``precalc``, ``step``, ``density``, ``get_state``/``set_state``, the
+    sorted path and the analytic fast path.  ``device`` None means the CUDA
+    card."""
 
     def __init__(self, spec: dict[str, Any] | PusherSpec, *, seed: int = 0,
                  loop_field_mode: str = "table", device=None):
@@ -254,6 +257,9 @@ class CylindricalParticlePusher:
         self._step = make_step_fn(spec)
         self._density = make_density_fn(spec)
         self._sorted_state = None
+        # field sources recorded for the analytic fast path (ops/analytic.py)
+        self._sources: list[tuple] = []
+        self._fast_scenario = None
 
     # ------------------------------------------------------------ setup
     def set(self, value: dict[str, Any]) -> None:
@@ -269,9 +275,15 @@ class CylindricalParticlePusher:
         if "E" in value:
             self.fields = self.fields._replace(
                 e=_f32(value["E"], dev).reshape(nr, nz, 3))
+            # not an analytic source: recorded so that enable_fast_path
+            # refuses instead of silently dropping it
+            self._sources.append(("grid_e",))
         if "B" in value:
             self.fields = self.fields._replace(
                 b=_f32(value["B"], dev).reshape(nr, nz, 3))
+            # replaces the recorded analytic sources on the grid: the fast
+            # path refuses instead of rebuilding B from them alone
+            self._sources.append(("grid_b",))
         if "position" in value:
             self.state = self.state._replace(
                 position=_f32(value["position"], dev).reshape(n, 3) * scale,
@@ -307,21 +319,25 @@ class CylindricalParticlePusher:
                 torch.broadcast_to(u * spec.radius, shape),
                 torch.broadcast_to(v * spec.height, shape), r, z, current)
         self._add_b(delta)
+        self._sources.append(("loop", float(r), float(z), float(current)))
 
     def add_current_z(self, current: float) -> None:
         """Axial line current (empic.js:1380-1389)."""
         self._add_b(field_ops.line_current_b(self.spec.nr, self.spec.nz,
                                              current, self.device))
+        self._sources.append(("line", float(current)))
 
     def add_bz(self, bz: float) -> None:
         """Uniform B_z (empic.js:1391-1400)."""
         self._add_b(field_ops.uniform_bz(self.spec.nr, self.spec.nz, bz,
                                          self.device))
+        self._sources.append(("bz", float(bz)))
 
     def add_btheta(self, btheta: float) -> None:
         """Uniform B_theta (empic.js:1402-1411)."""
         self._add_b(field_ops.uniform_btheta(self.spec.nr, self.spec.nz,
                                              btheta, self.device))
+        self._sources.append(("btheta", float(btheta)))
 
     def add_spindle_cusp_plasma_field(self, coil_current: float,
                                       n_power: int = 3) -> None:
@@ -329,10 +345,73 @@ class CylindricalParticlePusher:
             "add_spindle_cusp_plasma_field " + _NOT_YET.format(
                 "item 10, spindle + scenarios"))
 
-    def enable_fast_path(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "enable_fast_path " + _NOT_YET.format(
-                "item 6a, the analytic fast path, ops/analytic.py"))
+    # ------------------------------------------------------- fast path
+    def enable_fast_path(self, sink_box=None, source_box=None,
+                         uniform_e=(0.0, 0.0, 0.0),
+                         rng_impl: str = "rbg") -> None:
+        """Switch stepping to the analytic gather-free path
+        (ops/analytic.py): B is recomputed at each particle from the
+        recorded sources instead of gathered from the grid.
+
+        ``sink_box`` = (r_max, z_min, z_max) and ``source_box`` = (r_lo,
+        r_hi, z_lo, z_hi) in metres; the defaults reproduce the default
+        scenario's wall sinks and source box (fusionsim.js:94-122).  A grid
+        B, a grid E without ``uniform_e`` and non-analytic sources raise
+        ValueError.  ``rng_impl`` names a JAX generator ('rbg', ...); here
+        a true value re-seeds the shell's generator with 0, as the
+        reference starts a fresh stream."""
+        from ..ops.analytic import AnalyticScenario
+
+        spec = self.spec
+        loops = tuple((s[1], s[2], s[3]) for s in self._sources
+                      if s[0] == "loop")
+        bz = sum(s[1] for s in self._sources if s[0] == "bz")
+        btheta = sum(s[1] for s in self._sources if s[0] == "btheta")
+        line = sum(s[1] for s in self._sources if s[0] == "line")
+        if any(s[0] == "grid_e" for s in self._sources) and not any(
+                uniform_e):
+            raise ValueError(
+                "a grid E field was set; the fast path cannot sample it — "
+                "pass uniform_e=(Er, Etheta, Ez) if the field is uniform, or "
+                "stay in grid mode")
+        if any(s[0] == "grid_b" for s in self._sources):
+            raise ValueError(
+                "a grid B field was set via set({'B': ...}); the fast path "
+                "recomputes B analytically from recorded sources and would "
+                "silently drop it — stay in grid mode")
+        if any(s[0] not in ("loop", "bz", "btheta", "line", "grid_e")
+               for s in self._sources):
+            raise ValueError("fast path supports analytic sources only")
+        if sink_box is None:
+            sink_box = ((spec.nr - 1) / spec.nr * spec.radius,
+                        spec.height / spec.nz,
+                        (spec.nz - 1) / spec.nz * spec.height)
+        if source_box is None:
+            source_box = (0.0, spec.radius / 8,
+                          7 * spec.height / 16, 9 * spec.height / 16)
+        self._fast_scenario = AnalyticScenario(
+            loops=loops, bz=bz, btheta=btheta, line_current=line,
+            uniform_e=tuple(float(v) for v in uniform_e),
+            sink_box=tuple(float(v) for v in sink_box),
+            source_box=tuple(float(v) for v in source_box),
+            # the default grid mask keeps the on-axis column at the z walls
+            # (fusionsim.js:104-112: z-wall rows run r-cells 1..nr-2)
+            axis_keep_r=spec.radius / spec.nr)
+        if rng_impl:
+            self.generator.manual_seed(0)
+
+    def disable_fast_path(self) -> None:
+        self._fast_scenario = None
+
+    def _step_fast(self, n: int) -> None:
+        from ..ops.analytic import FastState, make_fast_multi_step_fn
+
+        run = make_fast_multi_step_fn(self.spec, self._fast_scenario, n)
+        fs = run(FastState(self.state.position, self.state.velocity,
+                           self.state.alive), self.generator)
+        self.state = self.state._replace(position=fs.position,
+                                         velocity=fs.velocity,
+                                         alive=fs.alive)
 
     # ------------------------------------------------------- sorted path
     def enable_sorted_path(self, tiling=None, resort_every: int = 8,
@@ -358,8 +437,12 @@ class CylindricalParticlePusher:
 
         ``rng_impl`` names a JAX generator ('rbg', ...); here it only
         re-seeds the shell's generator with 0, as the reference starts a
-        fresh stream.  ``repair=True`` is not ported yet (NotImplementedError;
-        ``repair_free_slots`` belongs to it)."""
+        fresh stream.  ``repair=True`` relocates the rows that left their
+        window into their new tile every substep (``repair_free_slots``
+        sizes each tile's stack); the full resort then runs every
+        ``resort_every`` steps at a window's start, or after a ``step()``
+        call whose ``unplaced`` count (read once a call) grew by more than
+        max(64, capacity // 8) a step."""
         from .pusher_sorted import (Tiling2D, make_sorted_density_fn,
                                     make_sorted_resort_fn,
                                     make_sorted_step_fn, to_sorted_state)
@@ -392,7 +475,7 @@ class CylindricalParticlePusher:
             raise ValueError(
                 f"spill_tiers {spill_tiers!r} must be strictly ascending "
                 f"positives below spill_capacity {spill_capacity}")
-        # validates backend and refuses repair=True before any state changes
+        # validates backend before any state changes
         self._sorted_step = make_sorted_step_fn(
             spec, tiling, spill_capacity, backend, repair=repair,
             respawn_capacity=respawn_capacity, spill_tiers=ts)
@@ -401,10 +484,32 @@ class CylindricalParticlePusher:
         self._sorted_tiling = tiling
         self._sorted_resort_every = resort_every
         self._sorted_capacity = spill_capacity
-        self._sorted_state = to_sorted_state(self.state, spec, tiling)
+        self._sorted_repair = repair
+        self._sorted_free_slots = int(repair_free_slots)
+        self._sorted_state = to_sorted_state(self.state, spec, tiling,
+                                             reserve=repair)
+        if repair:
+            self._sorted_state = self._sorted_state._replace(
+                unplaced=torch.zeros((), dtype=torch.int64,
+                                     device=self.device))
+            self._rebuild_free_list()
         self._sorted_density = make_sorted_density_fn(spec)
-        self._sorted_resort = make_sorted_resort_fn(spec, tiling)
+        self._sorted_resort = make_sorted_resort_fn(spec, tiling,
+                                                    reserve=repair)
         self._sorted_since = 0
+        self._sorted_unplaced_seen = 0
+        self._sorted_need_resort = False
+
+    def _rebuild_free_list(self) -> None:
+        from ..ops.repair import init_free_list
+
+        st = self._sorted_state
+        fidx, fcnt = init_free_list(
+            st.tile_id, st.valid,
+            math.prod(self._sorted_tiling.n_tiles((self.spec.nr,
+                                                   self.spec.nz))),
+            self._sorted_tiling.block, self._sorted_free_slots)
+        self._sorted_state = st._replace(free_idx=fidx, free_cnt=fcnt)
 
     def disable_sorted_path(self) -> None:
         """Return to the plain layout (live rows in layout order)."""
@@ -423,18 +528,24 @@ class CylindricalParticlePusher:
         self._sorted_state = self._sorted_step(self.fields, st, rands)
 
     def _step_sorted(self, n: int) -> None:
-        """The reference's cadence: a call spanning a whole window runs
-        ``resort_every`` steps and then resorts (the counter stays 0);
-        partial chunks count toward the next window, whose resort runs at
-        the start of a later call."""
+        """The reference's cadence: without repair, a call spanning a whole
+        window runs ``resort_every`` steps and then resorts (the counter
+        stays 0); partial chunks count toward the next window, whose resort
+        runs at the start of a later call.  With repair the resort runs at
+        a window's start or after the free stacks drained."""
+        from ..ops.repair import drain_check
+
         cadence = self._sorted_resort_every
         done = 0
         while done < n:
-            if self._sorted_since >= cadence:
+            if self._sorted_since >= cadence or self._sorted_need_resort:
                 self._sorted_state = self._sorted_resort(self._sorted_state)
+                if self._sorted_repair:
+                    self._rebuild_free_list()
                 self._sorted_since = 0
-            if (self._sorted_since == 0 and n - done >= cadence
-                    and cadence <= 128):
+                self._sorted_need_resort = False
+            if (not self._sorted_repair and self._sorted_since == 0
+                    and n - done >= cadence and cadence <= 128):
                 for _ in range(cadence):
                     self._sorted_step_once()
                 self._sorted_state = self._sorted_resort(self._sorted_state)
@@ -445,6 +556,12 @@ class CylindricalParticlePusher:
                 self._sorted_step_once()
             self._sorted_since += k
             done += k
+        if self._sorted_repair:
+            # one host read a call: resort at the next call if the stacks
+            # drained (a large unplaced delta)
+            (self._sorted_need_resort, self._sorted_unplaced_seen,
+             _) = drain_check(self._sorted_state, self._sorted_unplaced_seen,
+                              0, self._sorted_capacity, self.spec.n_total, n)
 
     # -------------------------------------------------------- simulation
     def precalc(self) -> None:
@@ -457,6 +574,9 @@ class CylindricalParticlePusher:
     def step(self, n: int = 1) -> None:
         """Advance n full steps (each two half-steps, empic.js:1436-1469),
         drawing the uniforms from the shell's generator."""
+        if self._fast_scenario is not None:
+            self._step_fast(n)
+            return
         if self._sorted_state is not None:
             self._step_sorted(n)
             return

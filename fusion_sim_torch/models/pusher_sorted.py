@@ -14,8 +14,12 @@ through a compacted patch (up to ``spill_capacity`` a substep).  Backends:
   drift and sink sample (ops/fused_pusher.py).
 
 Per particle the physics is that of the plain grid path; only the gather
-route and the row order differ.  Filler rows sit frozen at FILLER
-(r = z = 0.5, away from the r = 0 direction singularity) with weight 0.
+route and the row order differ.  ``repair=True`` relocates every substep
+the rows whose final sample cell left their block's window (margin
+out-drifters and fresh respawns) into dead slots of their new tile
+(ops/repair.py), so the full resort runs only when the free stacks drain.
+Filler rows sit frozen at FILLER (r = z = 0.5, away from the r = 0
+direction singularity) with weight 0.
 
 The step functions take this step's two substep uniforms as an argument
 (the shell draws them from its generator), so a caller can replay another
@@ -40,15 +44,14 @@ from ..ops.fused_pusher import cell_coords as _cell_coords
 from ..ops.fused_pusher import fused_pusher_substep
 from ..ops.interp import spill_rows
 from ..ops.push import sink_respawn
+from ..ops.repair import allocate_slots, relocate
 from ..ops.sorted_deposit import (Tiling2D, build_padded_layout,
-                                  gather_sorted_2d)
+                                  gather_sorted_2d, tile_ids)
 from ..ops.sorted_gather import gather_sorted_2d_window
 from ..utils.render import render_bmag, render_density_overlay
 
 FILLER = (0.5, 0.0, 0.5)
 BACKENDS = ("xla", "pallas", "fused")
-_REPAIR = ("repair=True is not ported yet (ROADMAP.md Queue A, item 5, "
-           "repair/eager)")
 
 
 class SortedPusherState(NamedTuple):
@@ -62,6 +65,10 @@ class SortedPusherState(NamedTuple):
     dropped: int = 0           # cumulative respawns past respawn_capacity
     dropped_over: int = 0      # cumulative out-of-window rows past
                                # spill_capacity (frozen that substep)
+    # incremental layout repair (repair=True) only:
+    free_idx: torch.Tensor | None = None  # (n_tiles, F) dead-slot stacks
+    free_cnt: torch.Tensor | None = None  # (n_tiles,)
+    unplaced: torch.Tensor | None = None  # cumulative rows left in place
 
 
 def _filler(device) -> torch.Tensor:
@@ -78,6 +85,8 @@ def sorted_pusher_state_from_numpy(blob: dict, device=None
     dev = resolve_device(device)
 
     def t(key, dtype):
+        if blob.get(key) is None:
+            return None
         return torch.tensor(np.asarray(blob[key], dtype), device=dev)
 
     def count(key):
@@ -89,7 +98,9 @@ def sorted_pusher_state_from_numpy(blob: dict, device=None
         alive=t("alive", np.float32), valid=t("valid", np.bool_),
         tile_id=t("tile_id", np.int32),
         moments_avg=t("moments_avg", np.float32), spill=count("spill"),
-        dropped=count("dropped"), dropped_over=count("dropped_over"))
+        dropped=count("dropped"), dropped_over=count("dropped_over"),
+        free_idx=t("free_idx", np.int64), free_cnt=t("free_cnt", np.int64),
+        unplaced=t("unplaced", np.int64))
 
 
 def padded_size(spec, tiling: Tiling2D) -> int:
@@ -100,9 +111,46 @@ def padded_size(spec, tiling: Tiling2D) -> int:
     return n0 + n_tiles * tiling.block
 
 
-def make_sorted_resort_fn(spec, tiling: Tiling2D):
+def _relocate_out_rows(state: SortedPusherState, position, velocity, alive,
+                       nr: int, nz: int, tiling: Tiling2D,
+                       spill_capacity: int):
+    """The repair pass of every backend: rows whose FINAL sample cell left
+    their block's window (margin out-drifters and fresh respawns, the
+    pusher's main layout churn), up to ``spill_capacity`` in row order, are
+    relocated into dead slots of their new tile.  Unplaced rows stay, keep
+    taking the exact patch and retry next substep.  Returns ``(position,
+    velocity, alive, valid, state updates)``; the three arrays are updated
+    in place."""
+    n_tot = position.shape[0]
+    n_tiles = math.prod(tiling.n_tiles((nr, nz)))
+    ntz = tiling.n_tiles((nr, nz))[1]
+    m = tiling.margin
+    wr, wz = tiling.window()
+    cell = _cell_coords(position, nr, nz)
+    tid = state.tile_id.to(torch.int64)
+    org_r = (torch.div(tid, ntz, rounding_mode="floor") * tiling.tile_r
+             - m).to(torch.float32)
+    org_z = (torch.remainder(tid, ntz) * tiling.tile_z - m).to(torch.float32)
+    lr = torch.remainder(cell[:, 0] - org_r, nr)
+    lz = torch.remainder(cell[:, 1] - org_z, nz)
+    mask = ((lr >= float(wr - 1)) | (lz >= float(wz - 1))) & state.valid
+    idx = spill_rows(mask, mask.sum(), spill_capacity, n_tot)[0]
+    at = torch.clamp(idx, max=n_tot - 1)
+    dest, placed, fidx, fcnt, nun = allocate_slots(
+        state.free_idx, state.free_cnt, idx, idx < n_tot,
+        tile_ids(cell[at], (nr, nz), tiling), tid[at], n_tot, n_tiles)
+    (position, velocity, alive), valid = relocate(
+        (position, velocity, alive), state.valid, idx, dest, placed,
+        (position[at], velocity[at], alive[at]), n_tot)
+    return position, velocity, alive, valid, dict(
+        free_idx=fidx, free_cnt=fcnt, unplaced=state.unplaced + nun)
+
+
+def make_sorted_resort_fn(spec, tiling: Tiling2D, reserve: bool = False):
     """``state -> state``: rebuild the layout from the sample cells (one
-    sort); fillers and invalid rows sink to the trailing dead region."""
+    sort); fillers and invalid rows sink to the trailing dead region.
+    ``reserve`` lays out every tile with dead slots spread over the tiles
+    (``build_padded_layout(reserve=, spread=)``), as repair needs."""
     nr, nz = spec.nr, spec.nz
 
     def resort(state: SortedPusherState) -> SortedPusherState:
@@ -112,7 +160,8 @@ def make_sorted_resort_fn(spec, tiling: Tiling2D):
             cell, (nr, nz), tiling,
             *[state.position[:, a] for a in range(3)],
             *[state.velocity[:, a] for a in range(3)],
-            state.alive, valid=state.valid, derive_valid=True)
+            state.alive, valid=state.valid, reserve=reserve, spread=reserve,
+            derive_valid=True)
         tid, valid = out[0][:n_state], out[9][:n_state]
         keep = valid[:, None]
         pos = torch.stack([c[:n_state] for c in out[2:5]], dim=-1)
@@ -158,11 +207,11 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
     those rows stay absorbed one more substep.  Out-of-window rows past
     ``spill_capacity`` count in ``dropped_over`` and FREEZE for the substep
     on every backend.  ``spill_tiers`` (fused backend) are smaller patch
-    buffers for low-spill substeps; the result is the same."""
+    buffers for low-spill substeps; the result is the same.  ``repair``
+    relocates the rows that left their window into their new tile each
+    substep (the state then carries the free stacks)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} (one of {BACKENDS})")
-    if repair:
-        raise NotImplementedError(_REPAIR)
     if respawn_capacity is None:
         respawn_capacity = min(spill_capacity, 2048)
     nr, nz = spec.nr, spec.nz
@@ -172,7 +221,13 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
         else (spill_capacity,)
 
     def finish(state, position, velocity, alive, **counts):
+        """Repair (relocation), then fillers frozen and inert."""
         v = state.valid
+        if repair:
+            position, velocity, alive, v, extra = _relocate_out_rows(
+                state, position, velocity, alive, nr, nz, tiling,
+                spill_capacity)
+            counts.update(extra, valid=v)
         return state._replace(
             position=torch.where(v[:, None], position,
                                  _filler(position.device)),
@@ -292,9 +347,10 @@ def make_sorted_density_fn(spec):
     return density
 
 
-def to_sorted_state(state, spec, tiling: Tiling2D) -> SortedPusherState:
+def to_sorted_state(state, spec, tiling: Tiling2D,
+                    reserve: bool = False) -> SortedPusherState:
     """A plain ``PusherState`` -> the padded sorted layout (row order not
-    preserved)."""
+    preserved); ``reserve`` as ``make_sorted_resort_fn``'s."""
     n = spec.n_total
     n_p = padded_size(spec, tiling)
     n0 = -(-n // tiling.block) * tiling.block
@@ -318,7 +374,7 @@ def to_sorted_state(state, spec, tiling: Tiling2D) -> SortedPusherState:
         valid=torch.arange(n_p, device=dev) < n,
         tile_id=torch.zeros((n_p,), dtype=torch.int32, device=dev),
         moments_avg=state.moments_avg)
-    return make_sorted_resort_fn(spec, tiling)(base)
+    return make_sorted_resort_fn(spec, tiling, reserve=reserve)(base)
 
 
 def from_sorted_state(sorted_state: SortedPusherState, spec, state_cls):

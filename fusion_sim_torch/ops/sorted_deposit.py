@@ -31,9 +31,6 @@ from .esirkepov import (esirkepov_deposit_2d, esirkepov_deposit_3d,
                         stencil_base)
 from .interp import cic_deposit_packed
 
-_NOT_YET = ("is not ported yet (ROADMAP.md Queue A: item 5, repair/eager "
-            "for ES, brings reserve/spread)")
-
 
 @dataclasses.dataclass(frozen=True)
 class Tiling2D:
@@ -111,6 +108,17 @@ class Tiling3D:
         return tuple(t + 2 * self.margin + 1 for t in self.tile)
 
 
+def sort_by_tile(position: torch.Tensor, shape: tuple[int, int],
+                 tiling: Tiling2D, *payloads: torch.Tensor):
+    """Sort particles (and payloads, 1D or with a leading axis N) by tile
+    id; returns ``(tile_sorted, position_sorted, *payloads_sorted)``.  A
+    stable sort: the reference's ``lax.sort`` promises no order inside a
+    tile, so the two agree on each tile's segment as a set of rows."""
+    tid = tile_ids(position, shape, tiling)
+    tid_s, order = torch.sort(tid, stable=True)
+    return (tid_s, position[order], *[p[order] for p in payloads])
+
+
 def tile_ids_3d(position: torch.Tensor, shape: tuple[int, int, int],
                 tiling: Tiling3D) -> torch.Tensor:
     """Flat tile id per particle (z fastest), int64."""
@@ -139,13 +147,19 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
     ``derive_valid`` the post-sort validity mask comes before ``n_valid``.
     ``tile_id`` is int32, like the reference's.
 
+    ``reserve``: every tile keeps at least one filler row (a tile whose
+    count would pad to zero gets a whole block of fillers), so that the
+    repair paths (ops/repair.py) always find a dead slot in any tile.
+    ``spread``: the surplus dead blocks, which would otherwise form the
+    trailing region, go round-robin to the tile segments (the remainder
+    to the tiles with the smallest pads), maximizing the per-tile repair
+    inventory.  Neither changes the layout's length.
+
     The sort is a stable ``torch.sort`` of the (tile, realness) key, then
     one gather per column; the reference's sort promises no order inside a
     tile, so the two agree on ``tile_id``/``valid`` and on each tile
     segment as a set of rows.
     """
-    if reserve or spread:
-        raise NotImplementedError("reserve/spread " + _NOT_YET)
     n_tiles = math.prod(tiling.n_tiles(shape))
     p_blk = tiling.block
     n = position.shape[0]
@@ -161,6 +175,16 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
         tid = torch.where(valid, tid, n_tiles)
     counts = torch.bincount(tid, minlength=n_tiles + 1)[:n_tiles]
     pads = torch.remainder(-counts, p_blk)
+    if reserve:
+        # at most one block a tile: the n_tiles*block budget covers it
+        pads = torch.where(pads == 0, p_blk, pads)
+    if spread:
+        extra_blocks = torch.div(total_pad - pads.sum(), p_blk,
+                                 rounding_mode="floor")
+        rank = torch.argsort(torch.argsort(pads, stable=True), stable=True)
+        pads = pads + (torch.div(extra_blocks, n_tiles, rounding_mode="floor")
+                       + (rank < torch.remainder(extra_blocks, n_tiles))
+                       ) * p_blk
     cum_pads = torch.cumsum(pads, 0)
     # filler j gets the tile whose cumulative pad range contains j; the
     # surplus beyond cum_pads[-1] sorts to the global end (tile = n_tiles)

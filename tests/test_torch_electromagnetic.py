@@ -296,8 +296,18 @@ def test_sorted_constructor_validation_and_not_ported():
     with pytest.raises(ValueError, match="multiple"):
         tem.SortedElectromagneticPIC(config, pos[:1000], vel[:1000],
                                      tiling=tiling, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make(repair=True)
+    # repair is ported (tests/test_torch_repair.py), with the reference's
+    # validation of its tuning arguments
+    for backend in ("xla", "pallas", "fused"):
+        sim = make(repair=True, gather_backend=backend)
+        sim.step(1)
+        assert sim.state.free_idx is not None and sim.repair_free_slots == 256
+    with pytest.raises(ValueError, match="requires repair"):
+        make(repair_eager=1)
+    with pytest.raises(ValueError, match="1..margin"):
+        make(repair=True, repair_eager=9)
+    with pytest.raises(ValueError, match="eager_capacity"):
+        make(repair=True, repair_eager=1, eager_capacity=0)
     # 3D configurations are built now (they raised before the 3D slice);
     # repair still waits there
     from fusion_sim_torch.ops.sorted_deposit import Tiling3D
@@ -312,9 +322,10 @@ def test_sorted_constructor_validation_and_not_ported():
         sim = build()
         sim.step(1)
         assert sim.state.position.shape[1] == 3 and sim.state.step == 1
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tem.SortedElectromagneticPIC(cfg3, pos3, pos3, tiling=tiling3,
-                                     repair=True, device="cpu")
+    sim = tem.SortedElectromagneticPIC(cfg3, pos3, pos3, tiling=tiling3,
+                                       repair=True, device="cpu")
+    sim.step(1)
+    assert int(sim.state.valid.sum()) == 1024
     with pytest.raises(ValueError, match="CFL"):
         tem.EMConfig(grid_shape=(16, 16), cell_size=(0.5, 0.5), dt=0.4,
                      charge=-0.01, mass=0.01)

@@ -157,8 +157,24 @@ def test_sorted_constructor_validation_and_not_ported():
         tes.SortedElectrostaticPIC(config, pos[:1000], vel[:1000],
                                    tiling=tiling, backend="pallas",
                                    device="cpu")
-    for kw in (dict(backend="xla"), dict(backend="pallas", repair=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # backend='xla' and repair are ported (tests/test_torch_repair.py);
+    # their validation is the reference's
+    for kw in (dict(backend="xla"), dict(backend="pallas", repair=True),
+               dict(backend="xla", repair=True, repair_eager=2)):
+        sim = tes.SortedElectrostaticPIC(config, pos, vel, tiling=tiling,
+                                         device="cpu", **kw)
+        sim.step(1)
+        assert int(sim.state.valid.sum()) == 1024
+        assert (sim.state.rho is None) == (kw["backend"] == "xla")
+        assert (sim.state.free_idx is None) == (not kw.get("repair"))
+    for kw, match in ((dict(repair=True, spill_fallback=False), "requires"),
+                      (dict(repair_eager=1), "requires repair"),
+                      (dict(repair=True, repair_eager=3), "1..margin"),
+                      (dict(repair=True, repair_eager=1, eager_capacity=0),
+                       "eager_capacity"),
+                      (dict(repair=True, spill_capacity=512,
+                            spill_tiers=(64,)), "incompatible")):
+        with pytest.raises(ValueError, match=match):
             tes.SortedElectrostaticPIC(config, pos, vel, tiling=tiling,
                                        device="cpu", **kw)
 

@@ -200,9 +200,12 @@ def test_sorted_em3d_constructor_defaults_and_what_still_raises():
     state = tem.sorted_em_state_from_numpy(blob, device="cpu")
     assert torch.equal(state.position, sim.state.position)
     assert torch.equal(state.tile_id, sim.state.tile_id)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tem.SortedElectromagneticPIC(config, pos, vel, repair=True,
-                                     device="cpu")
+    # 3D repair is ported (tests/test_torch_repair.py)
+    sim = tem.SortedElectromagneticPIC(config, pos, vel, repair=True,
+                                       repair_eager=1, device="cpu")
+    sim.step(1)
+    assert int(sim.state.valid.sum()) == pos.shape[0]
+    assert int(sim.state.unplaced) == 0
     with pytest.raises(ValueError, match="2D-only"):
         tem.SortedElectromagneticPIC(config, pos, vel,
                                      pallas_precision="exact_bf16_pack2",

@@ -150,12 +150,12 @@ def test_sorted_es3d_constructor_defaults_and_what_still_raises():
     # no carried rho: seeded from the layout's positions
     np.testing.assert_allclose(again.state.rho.numpy(), sim.state.rho.numpy(),
                                rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tes.SortedElectrostaticPIC(config, pos, vel, backend="xla",
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tes.SortedElectrostaticPIC(config, pos, vel, backend="pallas",
-                                   repair=True, device="cpu")
+    # 3D backend='xla' and repair are ported (tests/test_torch_repair.py)
+    for kw in (dict(backend="xla"), dict(backend="pallas", repair=True)):
+        sim = tes.SortedElectrostaticPIC(config, pos, vel, device="cpu", **kw)
+        sim.step(1)
+        assert sim.state.position.shape[1] == 3
+        assert int(sim.state.valid.sum()) == pos.shape[0]
     with pytest.raises(ValueError, match="2D-only"):
         tes.SortedElectrostaticPIC(config, pos, vel, backend="pallas",
                                    pallas_precision="exact_bf16_pack2",

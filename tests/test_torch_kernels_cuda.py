@@ -355,3 +355,52 @@ def test_3d_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         fused_em3d.fused_em3d_substep(*args, shape, big, 0.1, 0.1,
                                       (0.5, 0.5, 0.5), -0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [24, 32, 48, 96, 128])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("order", ["lhs_k_lanes", "lhs_k_sublanes"])
+def test_contraction_depth_kernel_matches_plain(cuda, order, precision, k):
+    """X1 on the tensor cores against its plain version (bf16-rounded for
+    'default'), at m = 96 (6 row tiles) and p = 320 (a ragged last column
+    chunk): 1e-5 of sum |a||b| per output for 'highest' (3xTF32), 1e-4 for
+    'default' (bf16 products exact, f32 sums in another order)."""
+    from fusion_sim_torch.ops import contraction_depth as cd
+
+    s, g, m, p = 5, 3, 96, 320
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    a_shape = (s, g, m, k) if order == "lhs_k_lanes" else (s, g, k, m)
+    a = torch.randn(a_shape, generator=gen, device=cuda)
+    b = torch.randn((s, g, k, p), generator=gen, device=cuda)
+    before = cd.LAUNCHES
+    got = cd.contraction_depth(a, b, order, precision)
+    assert cd.LAUNCHES == before + 1
+    plain = cd.contraction_depth_plain(a, b, order, precision)
+    torch.cuda.synchronize()
+    scale = cd.contraction_depth_plain(a.abs(), b.abs(), order, "highest")
+    tol = 1e-5 if precision == "highest" else 1e-4
+    assert got.shape == (s, 1, p)
+    assert bool(((got - plain).abs() <= tol * scale).all())
+    # deterministic: no atomics
+    assert torch.equal(got, cd.contraction_depth(a, b, order, precision))
+
+
+@pytest.mark.cuda
+def test_contraction_depth_kernel_rejects_bad_inputs(cuda):
+    from fusion_sim_torch.ops import contraction_depth as cd
+
+    a = torch.zeros((2, 2, 16, 24), device=cuda)
+    b = torch.zeros((2, 2, 24, 128), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        cd.contraction_depth(a.double(), b, "lhs_k_lanes", "highest")
+    with pytest.raises(ValueError, match="contiguous"):
+        cd.contraction_depth(a, b.transpose(2, 3).contiguous()
+                             .transpose(2, 3), "lhs_k_lanes", "highest")
+    with pytest.raises(ValueError, match="multiples of 4"):
+        cd.contraction_depth(a, torch.zeros((2, 2, 24, 130), device=cuda),
+                             "lhs_k_lanes", "highest")
+    with pytest.raises(ValueError, match="shared memory"):
+        cd.contraction_depth(torch.zeros((1, 1, 512, 128), device=cuda),
+                             torch.zeros((1, 1, 128, 128), device=cuda),
+                             "lhs_k_lanes", "highest")

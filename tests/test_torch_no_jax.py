@@ -101,6 +101,20 @@ def test_default_device_is_cuda():
             lambda: em.SortedElectromagneticPIC(em3, pos3, 0 * pos3)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
+    # this slice's entry points: ES xla, repair, the X1 experiment
+    tiling = Tiling2D(16, 16, 256, margin=2)
+    from fusion_sim_torch.examples import mxu_experiment
+    for build in (
+            lambda: es.SortedElectrostaticPIC(config, pos, 0 * pos,
+                                              tiling=tiling),
+            lambda: es.SortedElectrostaticPIC(config, pos, 0 * pos,
+                                              tiling=tiling, repair=True),
+            lambda: em.SortedElectromagneticPIC(em_config, pos, vel3,
+                                                tiling=tiling, repair=True),
+            lambda: mxu_experiment.make_bench(16, 24, 128, 2, 2,
+                                              "lhs_k_lanes", "default")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
     assert resolve_device("cpu").type == "cpu"
     sim = CylindricalParticlePusher(spec, device="cpu")
     apply_default_scenario(sim)

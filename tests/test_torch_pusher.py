@@ -348,12 +348,19 @@ def test_shell_sorted_path_matches_reference():
 
 def test_not_ported_and_validation():
     port = tpm.CylindricalParticlePusher(SPEC, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.enable_fast_path()
+    # the fast path and repair are ported (tests/test_torch_analytic.py,
+    # tests/test_torch_repair.py); the spindle field still waits
+    port.add_bz(0.01)
+    port.enable_fast_path()
+    assert port._fast_scenario.bz == 0.01
+    port.disable_fast_path()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.add_spindle_cusp_plasma_field(1e4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.enable_sorted_path(tiling=TTiling(**TILE), repair=True)
+    port.enable_sorted_path(tiling=TTiling(**TILE), repair=True,
+                            repair_free_slots=32)
+    st = port._sorted_state
+    assert st.free_idx.shape == (16, 32) and int(st.unplaced) == 0
+    assert bool((st.free_cnt > 0).all())       # reserve: every tile has slots
     with pytest.raises(ValueError, match="backend"):
         port.enable_sorted_path(tiling=TTiling(**TILE), backend="mosaic")
     with pytest.raises(ValueError, match="spill_tiers"):

@@ -67,8 +67,13 @@ def test_tiling_and_layout_validation():
     with pytest.raises(ValueError, match="divisible"):
         tp.Tiling2D(**TILE).n_tiles((60, 96))
     pos = torch.zeros((128, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.build_padded_layout(pos, SHAPE, tp.Tiling2D(**TILE), reserve=True)
+    # reserve/spread are ported (tests/test_torch_repair.py): every tile
+    # keeps a dead slot, the layout's length is unchanged
+    tid, _, valid, _ = tp.build_padded_layout(
+        pos, SHAPE, tp.Tiling2D(**TILE), reserve=True, derive_valid=True)
+    n_tiles = int(np.prod(tp.Tiling2D(**TILE).n_tiles(SHAPE)))
+    assert tid.shape == (128 + n_tiles * TILE["block"],)
+    assert all(bool((~valid[tid == t]).any()) for t in range(n_tiles))
     with pytest.raises(ValueError, match="multiple"):
         tp.build_padded_layout(pos[:100], SHAPE, tp.Tiling2D(**TILE))
     # a 3D grid with a Tiling3D is laid out too (it raised before the 3D
@@ -76,9 +81,10 @@ def test_tiling_and_layout_validation():
     out = tp.build_padded_layout(torch.zeros((128, 3)), (16, 16, 16),
                                  tp.Tiling3D((8, 8, 8), 128, 1))
     assert out[1].shape == (128 + 8 * 128, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.build_padded_layout(torch.zeros((128, 3)), (16, 16, 16),
-                               tp.Tiling3D((8, 8, 8), 128, 1), reserve=True)
+    out = tp.build_padded_layout(torch.zeros((128, 3)), (16, 16, 16),
+                                 tp.Tiling3D((8, 8, 8), 128, 1), reserve=True,
+                                 spread=True)
+    assert out[1].shape == (128 + 8 * 128, 3) and int(out[-1]) == 128 + 8 * 128
     np.testing.assert_array_equal(
         tp.tile_ids(torch.tensor(_particles()[0]), SHAPE,
                     tp.Tiling2D(**TILE)).numpy(),

@@ -97,8 +97,11 @@ def test_tiling3d_validation():
     assert tp.Tiling3D(**TILE).window() == (13, 13, 21)
     assert tp.Tiling3D() == tp.Tiling3D((8, 8, 8), 512, 1, "float32")
     pos = torch.zeros((128, 3))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tp.build_padded_layout(pos, SHAPE, tp.Tiling3D(**TILE), spread=True)
+    # spread is ported (tests/test_torch_repair.py): the surplus dead blocks
+    # go to the tile segments, none is left trailing
+    tid = tp.build_padded_layout(pos, SHAPE, tp.Tiling3D(**TILE),
+                                 spread=True)[0]
+    assert not bool((tid == 8).any())
     with pytest.raises(ValueError, match="multiple"):
         tp.build_padded_layout(pos[:100], SHAPE, tp.Tiling3D(**TILE))
 
