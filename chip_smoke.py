@@ -22,10 +22,13 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                the CPU; B5 (es3d_substep) and B6 (em3d_substep) at the 3D
                tiling (8^3, block 512, margin 2) on a 64^3 grid, thermal
                and heavy-spill inputs (B6 also relativistic, and both
-               forms of its field read), then small 3D ES and EM runs on
+               forms of its field read: the staged window and, at margin
+               7, the corners through L1), then small 3D ES and EM runs on
                the card against the CPU across resorts; X1
                (contraction_depth) at m = 96, p = 256, G = 4, S = 8 for
-               both orders, both precisions and every K; small runs on the
+               both orders, both precisions and every K, and at the edges
+               of its load ring (G 1 and 5, K 8, 40 and 136, m 20 and 36,
+               p 100, 128 and 196); small runs on the
                card against the CPU of ES 2D ``backend='xla'``, ES 2D and
                3D ``repair=True, repair_eager=1``, EM 2D fused with repair,
                EM 3D fused with repair and eager 1, the fused pusher with
@@ -1168,6 +1171,25 @@ def phase3_3d(torch, es, em, f3, fe3, Tiling3D, build_padded_layout, dev,
         log("3 kernels", f"em3d_substep {case} ({pos_p.shape[0]} rows, "
                          f"{cells}^3): {report}; kernel {k_ms:.4f} ms, plain "
                          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # margin 7: a 23^3 window whose fields do not fit beside J in shared
+    # memory, so the kernel reads the corners through L1
+    wide = Tiling3D(tile=(8, 8, 8), block=512, margin=7)
+    pos_w = torch.tensor(rng.random((n3 // 8, 3), dtype=np.float32) * cells,
+                         device=dev)
+    vel_w = torch.tensor(1.5 * rng.standard_normal((n3 // 8, 3),
+                                                   dtype=np.float32),
+                         device=dev)
+    tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
+        pos_w, shape, wide, vel_w[:, 0], vel_w[:, 1], vel_w[:, 2],
+        derive_valid=True)
+    st = em.SortedEMState(pos_p, torch.stack([v0, v1, v2], -1).contiguous(),
+                          tid, valid, None, None, 0, 0, 0)
+    args = em_substep_args(em3d_config(em, cells), wide, table, st)
+    _, report = compare_fused(torch, "B6", fe3.fused_em3d_substep(*args),
+                              fe3.fused_em3d_substep_plain(*args), args[3],
+                              "J")
+    log("3 kernels", f"em3d_substep margin 7 (L1 corner reads, "
+                     f"{pos_p.shape[0]} rows, {cells}^3): {report}")
 
     # small 3D runs on the card against the same runs on the CPU: one
     # carried layout, speeds that spill past margin 1, 7 steps across two
@@ -1385,6 +1407,7 @@ def phase8_em3d_main(torch, em, fe3, Tiling3D, smi, kernel_modules,
 # -- phase 3, the paths of this slice: X1 and small runs against the CPU ------
 
 X1_DEPTHS = (24, 32, 48, 96, 128)
+X1_EDGES = ((3, 1, 96, 8, 128), (2, 1, 20, 40, 196), (4, 5, 36, 136, 100))
 
 
 def compare_x1(torch, cd, a, b, order, precision):
@@ -1420,9 +1443,20 @@ def phase3_x1(torch, cd, dev):
                 b = torch.randn((s, g, k, p), generator=gen, device=dev)
                 worst.append(compare_x1(torch, cd, a, b, order,
                                         precision)[1])
+            # the ring's edges: one stage only (G 1, K 8), K not a multiple
+            # of the 16-deep stage, odd G, m off 16 rows, ragged p
+            for es, eg, em_, ek, ep in X1_EDGES:
+                gen = torch.Generator(device=dev).manual_seed(ek + eg)
+                a_shape = (es, eg, em_, ek) if order == "lhs_k_lanes" \
+                    else (es, eg, ek, em_)
+                a = torch.randn(a_shape, generator=gen, device=dev)
+                b = torch.randn((es, eg, ek, ep), generator=gen, device=dev)
+                worst.append(compare_x1(torch, cd, a, b, order,
+                                        precision)[1])
             log("3 kernels", f"contraction_depth {order} {precision} "
                              f"(S {s}, G {g}, m {m}, p {p}), K "
-                             f"{'/'.join(map(str, X1_DEPTHS))}: worst error "
+                             f"{'/'.join(map(str, X1_DEPTHS))}, then "
+                             f"(S, G, m, K, p) {X1_EDGES}: worst error "
                              f"{'/'.join(f'{w:.2g}' for w in worst)} of "
                              f"sum|a||b| (tol "
                              f"{1e-5 if precision == 'highest' else 1e-4:g})")

@@ -11,80 +11,100 @@
 // contraction runs over A's first axis).  f32 in, f32 out (S, 1, p).
 //
 // Precision.  The TPU's 'default' is one bf16 pass of the matrix unit:
-// here A and B are rounded to bf16 (round to nearest even) as they are
-// staged, and each product is one mma.sync.m16n8k16 bf16 -> f32.  The TPU's
-// 'highest' is f32-accurate in several passes: here 3xTF32, each value
-// split into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), and three
-// mma.sync.m16n8k8 TF32 -> f32 products a_lo.b_hi + a_hi.b_lo + a_hi.b_hi
-// into the same f32 accumulator (a_lo.b_lo, ~2^-22 relative, is dropped).
+// here A and B are rounded to bf16 (round to nearest even) as their
+// fragments are loaded, and each product is one mma.sync.m16n8k16 bf16 ->
+// f32.  The TPU's 'highest' is f32-accurate in several passes: here 3xTF32,
+// each value split into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi)
+// (split_tf32), and three mma.sync.m16n8k8 TF32 -> f32 products a_lo.b_hi +
+// a_hi.b_lo + a_hi.b_hi into the same f32 accumulator (a_lo.b_lo, ~2^-22
+// relative, is dropped).
 //
-// Depth is the experiment's variable.  k is zero-padded in shared memory
-// to the instruction's depth: kp = 16 * ceil(k / 16) for bf16, 8 * ceil(k /
-// 8) for TF32 (k = 24 runs 32 deep in bf16, 24 in TF32).  m is zero-padded
-// to 16 rows (m16) and the last p chunk to 128 columns.  The padding is
-// written once, when the CTA clears its shared memory; staging never
-// touches it, so every product beyond (m, k, p) multiplies zeros.
-//
-// Design (simple first; wgmma and TMA are later work).  One CTA of 8 warps
-// owns one s and a chunk of 128 columns of p.  It loops over g: stages A_g
-// in its own order (rows of k for sublanes) and the (k, 128) slice of B_g
-// into shared memory with float4 loads, then runs the full m16 x kp x 128
-// product with mma.sync.  Warp w takes columns 32 (w % 4) .. +32 (four n8
-// tiles) and the m16 row tiles of parity w / 4, and accumulates every g and
-// every one of its row tiles into one 16 x 32 register accumulator: the
-// column sums are linear, so summing row tiles in the accumulator is the
-// same sum, and every one of the m x k x p multiply-adds still runs on the
-// tensor cores.  At the end each thread adds its two accumulator rows,
-// warp shuffles add the eight row groups, the two row-tile parities meet in
-// shared memory, and each output is stored once.  No atomics: the output is
-// deterministic.  Fragments are loaded from shared memory with scalar
-// (16- or 32-bit) loads; the lhs_k_sublanes order reads A transposed (two
-// 16-bit loads for a bf16 pair, one 32-bit load per TF32 value), which is
-// the operand-order question of the experiment.  Row strides are padded so
-// that the fragment loads of a warp hit 32 distinct banks.
+// Depth is the experiment's variable.  k is zero-padded to the
+// instruction's depth: kp = 16 * ceil(k / 16) for bf16, 8 * ceil(k / 8)
+// for TF32 (k = 24 runs 32 deep in bf16, 24 in TF32).  m is zero-padded to
+// 16 rows (m16) and the last p chunk to 128 columns.
 //
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16, 495 TF32 = 165 for
 // 3xTF32): memory.  B alone is S G k p 4 bytes, 5.12 GB at the defaults
 // (S 305, G 32, p 1024, k 128): 1.5 ms, against 0.25 ms of bf16 and 1.5 ms
-// of 3xTF32 flops (2 S G m k p).  A is re-read by each of the p / 128
-// column chunks of an s (from L2 in practice).  Elements are indexed with
-// 64-bit offsets (B passes 2^31 elements' bytes).
+// of 3xTF32 flops (2 S G m k p).  The kernel is a streaming read of B, so
+// its design is an asynchronous load pipeline:
+//
+// * One CTA of 8 warps owns one s and a chunk of 256 columns of p, and
+//   walks the stages (g, k0) for every g and every 16-deep slice of the
+//   padded depth: A_g[:, k0:k0+16] and B_g[k0:k0+16, p0:p0+256], ~26 KB of
+//   f32 a stage.  A ring of 3 stages (~78 KB) keeps two stages in flight
+//   while the tensor cores run the oldest; two CTAs share an SM, ~100 KB of
+//   loads in flight an SM against the ~25 KB Little's law asks at 3.35
+//   TB/s.  (In variant timings on an H100, 256 columns and 3 stages were
+//   faster in bf16 than 128 columns with 4 or 6 stages and than 32-deep
+//   stages: the wider chunk halves A's re-reads and fragment loads per
+//   column.)
+// * Copies are 16-byte cp.async.cg (L2 only), issued by every thread into
+//   the padded layout, one commit group a stage (cp.async.wait_group
+//   kStages - 2, then one barrier a stage).  Chosen over TMA because the
+//   padded strides give every fragment load 32 distinct banks without a
+//   swizzle, and cp.async's src-size 0 zero-fills the rows beyond k (the
+//   depth padding) and the columns beyond p (the ragged edge) just as
+//   TMA's out-of-bounds fill would.  A TMA multicast of A to the p / 256
+//   CTAs of an s is not used: A is 1/p of B's bytes a column and its
+//   re-reads hit L2 (the CTAs of one s are launched together).
+// * The staged values stay f32; warps convert at fragment load (bf16 pairs
+//   with cvt.rn.bf16x2, or the TF32 hi/lo split in integer operations,
+//   which timed faster than the cvt.rna.tf32.f32 instruction and than a
+//   truncating split) and
+//   run mma.sync.  Warp w takes 64 columns (w % 4) and the m16 row tiles of
+//   parity w / 4, and accumulates every stage and every one of its row
+//   tiles into one 16 x 64 register accumulator: the column sums are
+//   linear, so summing row tiles in the accumulator is the same sum, and
+//   every one of the m x k x p multiply-adds still runs on the tensor
+//   cores.  In each 32-column group of a warp, column 8 t + j of n-tile t
+//   sits at 4 j + t, so one 16-byte load of a row of B gives the fragments
+//   of four n-tiles.
+// * At the end each thread adds its two accumulator rows, warp shuffles add
+//   the eight row groups, the two row-tile parities meet in shared memory,
+//   and each output is stored once.  No atomics: the output is
+//   deterministic.
+//
+// Padded strides (f32 words; a warp's fragment loads hit 32 banks):
+// B rows 256 + 4 (bf16: rows 2t, 2t + 1, ...) or 256 + 8 (TF32: rows t,
+// t + 4); A lhs_k_lanes rows 16 + 8 (bf16, 8-byte pairs) or 16 + 4 (TF32);
+// A lhs_k_sublanes rows m16 + 4 (bf16) or m16 + 8 (TF32).  Elements are
+// indexed with 64-bit offsets (B passes 2^31 elements' bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kPC = 128;       // columns of p a CTA owns
-constexpr int kBStride = kPC + 8;
+constexpr int kPC = 256;       // columns of p a CTA owns
+constexpr int kKC = 16;        // depth of a stage (a multiple of 16)
+constexpr int kStages = 3;     // stages in the ring
+constexpr int kWarpCols = kPC / 4;  // columns a warp owns (4 x 2 warps)
+constexpr int kNT = kWarpCols / 8;  // its n8 tiles
 
 struct Shape {
   int S, G, m, k, p, kp, m16, n_chunks;
 };
 
-__device__ __forceinline__ uint16_t to_bf16(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+// cvt.rna.tf32.f32 for finite x in two integer operations: half a TF32
+// ulp added to the magnitude, the low 13 bits cleared (ties away from 0)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x = hi + lo to ~2^-22 relative, both TF32
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -105,35 +125,97 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Shared-memory layout (elements of type T: uint16_t bf16 bits or float).
-// A: lhs_k_lanes as (m16, a_stride) with a_stride = kp + 8 (bf16) or kp + 4
-// (f32); lhs_k_sublanes as (kp, m16 + 8).  B: (kp, kBStride).
+// 16-byte global -> shared copy; src_bytes 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// One stage of the ring, in f32 words: A then B, each row 16-byte aligned.
+// A: lhs_k_lanes (m16, kKC + pad) or lhs_k_sublanes (kKC, m16 + pad);
+// B: (kKC, kPC + pad).
 template <bool kBf16, bool kSublanes>
 struct Layout {
+  static constexpr int kBStride = kPC + (kBf16 ? 4 : 8);
   __host__ __device__ static int a_stride(const Shape& sh) {
-    return kSublanes ? sh.m16 + 8 : sh.kp + (kBf16 ? 8 : 4);
+    return kSublanes ? sh.m16 + (kBf16 ? 4 : 8) : kKC + (kBf16 ? 8 : 4);
   }
-  __host__ __device__ static int a_elems(const Shape& sh) {
-    return (kSublanes ? sh.kp : sh.m16) * a_stride(sh);
+  __host__ __device__ static int a_words(const Shape& sh) {
+    return (kSublanes ? kKC : sh.m16) * a_stride(sh);
+  }
+  __host__ __device__ static int stage_words(const Shape& sh) {
+    return a_words(sh) + kKC * kBStride;
   }
   __host__ __device__ static size_t bytes(const Shape& sh) {
-    const size_t elem = kBf16 ? 2 : 4;
-    return elem * ((size_t)a_elems(sh) + (size_t)sh.kp * kBStride);
+    return sizeof(float) * (size_t)kStages * stage_words(sh);
   }
 };
+
+// Issues the copies of stage `it` (g = it / nkc, k0 = 16 (it % nkc)) into
+// ring slot `slot`.
+template <bool kBf16, bool kSublanes>
+__device__ __forceinline__ void issue_stage(const float* __restrict__ a,
+                                            const float* __restrict__ b,
+                                            float* slot, const Shape& sh,
+                                            int s, int p0, int it, int nkc) {
+  using L = Layout<kBf16, kSublanes>;
+  const int g = it / nkc, k0 = (it - g * nkc) * kKC;
+  const size_t sg = (size_t)s * sh.G + g;
+  const int sa = L::a_stride(sh);
+  float* As = slot;
+  float* Bs = slot + L::a_words(sh);
+  if constexpr (kSublanes) {
+    // rows k0 .. k0 + kKC - 1 of A[s, g] (k, m): m floats each
+    const int per_row = sh.m / 4;
+    const float* ag = a + sg * (size_t)sh.k * sh.m;
+    for (int v = threadIdx.x; v < kKC * per_row; v += kThreads) {
+      const int r = v / per_row, c4 = (v - r * per_row) * 4;
+      const bool in = k0 + r < sh.k;
+      cp_async16(As + r * sa + c4,
+                 in ? ag + (size_t)(k0 + r) * sh.m + c4 : a, in ? 16 : 0);
+    }
+  } else {
+    // columns k0 .. k0 + kKC - 1 of A[s, g] (m, k)
+    const float* ag = a + sg * (size_t)sh.m * sh.k;
+    for (int v = threadIdx.x; v < sh.m * (kKC / 4); v += kThreads) {
+      const int r = v / (kKC / 4), c4 = (v % (kKC / 4)) * 4;
+      const bool in = k0 + c4 < sh.k;
+      cp_async16(As + r * sa + c4,
+                 in ? ag + (size_t)r * sh.k + k0 + c4 : a, in ? 16 : 0);
+    }
+  }
+  // rows k0 .. k0 + kKC - 1, columns p0 .. p0 + kPC - 1 of B[s, g] (k, p)
+  const float* bg = b + sg * (size_t)sh.k * sh.p + p0;
+  for (int v = threadIdx.x; v < kKC * (kPC / 4); v += kThreads) {
+    const int r = v / (kPC / 4), c4 = (v % (kPC / 4)) * 4;
+    const bool in = k0 + r < sh.k && p0 + c4 < sh.p;
+    cp_async16(Bs + r * L::kBStride + c4,
+               in ? bg + (size_t)(k0 + r) * sh.p + c4 : b, in ? 16 : 0);
+  }
+}
 
 template <bool kBf16, bool kSublanes>
 __global__ void __launch_bounds__(kThreads)
 contraction_depth_kernel(const float* __restrict__ a,
                          const float* __restrict__ b, float* __restrict__ o,
                          Shape sh) {
-  using T = typename std::conditional<kBf16, uint16_t, float>::type;
   using L = Layout<kBf16, kSublanes>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kBS = L::kBStride;
+  extern __shared__ __align__(16) float ring[];
   __shared__ float red[2][kPC];
-  T* As = reinterpret_cast<T*>(smem_raw);
-  T* Bs = As + L::a_elems(sh);
   const int sa = L::a_stride(sh);
+  const int stage_words = L::stage_words(sh);
 
   const int s = blockIdx.x / sh.n_chunks;
   const int p0 = (blockIdx.x % sh.n_chunks) * kPC;
@@ -142,96 +224,122 @@ contraction_depth_kernel(const float* __restrict__ a,
   const int grp = lane >> 2, tig = lane & 3;
   const int warp_n = warp & 3, warp_m = warp >> 2;
 
-  // zero once: the depth, row and column padding stays zero for every g
+  // zero the ring once: the row padding of A (m .. m16) is never copied
+  // and must multiply as zeros; everything else is rewritten every stage
   {
-    uint4* z = reinterpret_cast<uint4*>(smem_raw);
+    uint4* z = reinterpret_cast<uint4*>(ring);
     const int n16 = (int)(L::bytes(sh) / 16);
     for (int i = tid; i < n16; i += kThreads) z[i] = make_uint4(0, 0, 0, 0);
   }
+  __syncthreads();
 
-  float acc[4][4];
+  const int nkc = (sh.kp + kKC - 1) / kKC;  // stages a g
+  const int n_stages = sh.G * nkc;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_stages) {
+      issue_stage<kBf16, kSublanes>(a, b, ring + i * stage_words, sh, s, p0,
+                                    i, nkc);
+    }
+    cp_async_commit();
+  }
+
+  float acc[kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[nt][r] = 0.0f;
 
-  const int mk = sh.m * sh.k;
   const int m_tiles = sh.m16 / 16;
-  for (int g = 0; g < sh.G; ++g) {
-    __syncthreads();  // the previous g's fragments are read (and the zeroing)
-    const size_t sg = (size_t)s * sh.G + g;
-    // stage A_g (m * k contiguous floats, its own order)
-    const float4* a4 = reinterpret_cast<const float4*>(a + sg * (size_t)mk);
-    for (int v = tid; v < mk / 4; v += kThreads) {
-      const float4 x = __ldg(a4 + v);
-      const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int e = 4 * v + j;
-        const int inner = kSublanes ? sh.m : sh.k;
-        const int row = e / inner, col = e - row * inner;
-        if constexpr (kBf16) {
-          As[row * sa + col] = to_bf16(xs[j]);
-        } else {
-          As[row * sa + col] = xs[j];
-        }
+  // this lane's permuted columns: 4 of each 32-column group of the warp
+  const int bcol = warp_n * kWarpCols + grp * 4;
+  for (int it = 0; it < n_stages; ++it) {
+    cp_async_wait<kStages - 2>();  // stage `it` has landed (this thread's)
+    __syncthreads();               // ... everyone's; slot it - 1 is free
+    {
+      const int nxt = it + kStages - 1;
+      if (nxt < n_stages) {
+        issue_stage<kBf16, kSublanes>(a, b,
+                                      ring + (nxt % kStages) * stage_words,
+                                      sh, s, p0, nxt, nkc);
       }
+      cp_async_commit();
     }
-    // stage the (k, kPC) slice of B_g
-    const float* bg = b + sg * (size_t)sh.k * sh.p + p0;
-    for (int v = tid; v < sh.k * (kPC / 4); v += kThreads) {
-      const int row = v / (kPC / 4), c4 = (v % (kPC / 4)) * 4;
-      if (p0 + c4 < sh.p) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(
-            bg + (size_t)row * sh.p + c4));
-        T* dst = Bs + row * kBStride + c4;
-        if constexpr (kBf16) {
-          dst[0] = to_bf16(x.x); dst[1] = to_bf16(x.y);
-          dst[2] = to_bf16(x.z); dst[3] = to_bf16(x.w);
-        } else {
-          dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
-        }
-      }
-    }
-    __syncthreads();
+    const float* As = ring + (it % kStages) * stage_words;
+    const float* Bs = As + L::a_words(sh);
+    // the instruction depths of this stage that lie inside kp
+    const int k_stage = min(kKC, sh.kp - (it % nkc) * kKC);
 
-    // the m16 x kp x kPC product on the tensor cores, kp in instruction
-    // depths (16 bf16, 8 TF32)
-    constexpr int kDepth = kBf16 ? 16 : 8;
-    for (int k0 = 0; k0 < sh.kp; k0 += kDepth) {
-      uint32_t bf[4][2], bl[4][2];
+    if constexpr (kBf16) {
+      for (int k0 = 0; k0 < k_stage; k0 += 16) {
+        uint32_t bfr[kNT][2];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = warp_n * 32 + nt * 8 + grp;
-        if constexpr (kBf16) {
-          const int r0 = k0 + 2 * tig;
-          bf[nt][0] = pack(Bs[r0 * kBStride + n], Bs[(r0 + 1) * kBStride + n]);
-          bf[nt][1] = pack(Bs[(r0 + 8) * kBStride + n],
-                           Bs[(r0 + 9) * kBStride + n]);
-        } else {
-          split_tf32(Bs[(k0 + tig) * kBStride + n], bf[nt][0], bl[nt][0]);
-          split_tf32(Bs[(k0 + tig + 4) * kBStride + n], bf[nt][1], bl[nt][1]);
+        for (int h = 0; h < kNT / 4; ++h) {
+          const float* bp = Bs + bcol + 32 * h;
+          const float4 r0 =
+              *reinterpret_cast<const float4*>(bp + (k0 + 2 * tig) * kBS);
+          const float4 r1 =
+              *reinterpret_cast<const float4*>(bp + (k0 + 2 * tig + 1) * kBS);
+          const float4 r8 =
+              *reinterpret_cast<const float4*>(bp + (k0 + 2 * tig + 8) * kBS);
+          const float4 r9 =
+              *reinterpret_cast<const float4*>(bp + (k0 + 2 * tig + 9) * kBS);
+          const int n = 4 * h;
+          bfr[n][0] = bf16x2(r0.x, r1.x); bfr[n][1] = bf16x2(r8.x, r9.x);
+          bfr[n + 1][0] = bf16x2(r0.y, r1.y);
+          bfr[n + 1][1] = bf16x2(r8.y, r9.y);
+          bfr[n + 2][0] = bf16x2(r0.z, r1.z);
+          bfr[n + 2][1] = bf16x2(r8.z, r9.z);
+          bfr[n + 3][0] = bf16x2(r0.w, r1.w);
+          bfr[n + 3][1] = bf16x2(r8.w, r9.w);
         }
-      }
-      for (int mt = warp_m; mt < m_tiles; mt += 2) {
-        const int r0 = mt * 16 + grp, r1 = r0 + 8;
-        if constexpr (kBf16) {
-          uint32_t af[4];
+        for (int mt = warp_m; mt < m_tiles; mt += 2) {
+          const int r0 = mt * 16 + grp, r1 = r0 + 8;
           const int c0 = k0 + 2 * tig, c1 = c0 + 8;
+          uint32_t af[4];
           if constexpr (kSublanes) {
-            af[0] = pack(As[c0 * sa + r0], As[(c0 + 1) * sa + r0]);
-            af[1] = pack(As[c0 * sa + r1], As[(c0 + 1) * sa + r1]);
-            af[2] = pack(As[c1 * sa + r0], As[(c1 + 1) * sa + r0]);
-            af[3] = pack(As[c1 * sa + r1], As[(c1 + 1) * sa + r1]);
+            af[0] = bf16x2(As[c0 * sa + r0], As[(c0 + 1) * sa + r0]);
+            af[1] = bf16x2(As[c0 * sa + r1], As[(c0 + 1) * sa + r1]);
+            af[2] = bf16x2(As[c1 * sa + r0], As[(c1 + 1) * sa + r0]);
+            af[3] = bf16x2(As[c1 * sa + r1], As[(c1 + 1) * sa + r1]);
           } else {
-            af[0] = *reinterpret_cast<const uint32_t*>(As + r0 * sa + c0);
-            af[1] = *reinterpret_cast<const uint32_t*>(As + r1 * sa + c0);
-            af[2] = *reinterpret_cast<const uint32_t*>(As + r0 * sa + c1);
-            af[3] = *reinterpret_cast<const uint32_t*>(As + r1 * sa + c1);
+            const float2 x0 =
+                *reinterpret_cast<const float2*>(As + r0 * sa + c0);
+            const float2 x1 =
+                *reinterpret_cast<const float2*>(As + r1 * sa + c0);
+            const float2 x2 =
+                *reinterpret_cast<const float2*>(As + r0 * sa + c1);
+            const float2 x3 =
+                *reinterpret_cast<const float2*>(As + r1 * sa + c1);
+            af[0] = bf16x2(x0.x, x0.y);
+            af[1] = bf16x2(x1.x, x1.y);
+            af[2] = bf16x2(x2.x, x2.y);
+            af[3] = bf16x2(x3.x, x3.y);
           }
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[nt], af, bf[nt]);
-        } else {
+          for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[nt], af, bfr[nt]);
+        }
+      }
+    } else {
+      for (int k0 = 0; k0 < k_stage; k0 += 8) {
+        uint32_t bh[kNT][2], bl[kNT][2];
+#pragma unroll
+        for (int h = 0; h < kNT / 4; ++h) {
+          const float* bp = Bs + bcol + 32 * h;
+          const float4 x0 =
+              *reinterpret_cast<const float4*>(bp + (k0 + tig) * kBS);
+          const float4 x4 =
+              *reinterpret_cast<const float4*>(bp + (k0 + tig + 4) * kBS);
+          const float v0[4] = {x0.x, x0.y, x0.z, x0.w};
+          const float v4[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            split_tf32(v0[j], bh[4 * h + j][0], bl[4 * h + j][0]);
+            split_tf32(v4[j], bh[4 * h + j][1], bl[4 * h + j][1]);
+          }
+        }
+        for (int mt = warp_m; mt < m_tiles; mt += 2) {
+          const int r0 = mt * 16 + grp, r1 = r0 + 8;
           const int c0 = k0 + tig, c1 = c0 + 4;
           float av[4];
           if constexpr (kSublanes) {
@@ -245,22 +353,23 @@ contraction_depth_kernel(const float* __restrict__ a,
 #pragma unroll
           for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const uint32_t bh2[2] = {bf[nt][0], bf[nt][1]};
-            const uint32_t bl2[2] = {bl[nt][0], bl[nt][1]};
-            mma_tf32(acc[nt], al, bh2);
-            mma_tf32(acc[nt], ah, bl2);
-            mma_tf32(acc[nt], ah, bh2);
+          for (int nt = 0; nt < kNT; ++nt) {
+            mma_tf32(acc[nt], al, bh[nt]);
+            mma_tf32(acc[nt], ah, bl[nt]);
+            mma_tf32(acc[nt], ah, bh[nt]);
           }
         }
       }
     }
   }
+  cp_async_wait<0>();
 
   // column sums: a thread's two rows, then the eight row groups of a warp
-  // (lanes that share tig), then the two row-tile parities in shared memory
+  // (lanes that share tig), then the two row-tile parities in shared
+  // memory.  Logical column 8 j + 2 tig + e of a 32-column group sits at
+  // 4 (2 tig + e) + j.
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nt = 0; nt < kNT; ++nt) {
     float v0 = acc[nt][0] + acc[nt][2];
     float v1 = acc[nt][1] + acc[nt][3];
 #pragma unroll
@@ -269,9 +378,9 @@ contraction_depth_kernel(const float* __restrict__ a,
       v1 += __shfl_xor_sync(0xffffffffu, v1, off);
     }
     if (grp == 0) {
-      const int col = warp_n * 32 + nt * 8 + 2 * tig;
+      const int col = warp_n * kWarpCols + 32 * (nt / 4) + 8 * tig + nt % 4;
       red[warp_m][col] = v0;
-      red[warp_m][col + 1] = v1;
+      red[warp_m][col + 4] = v1;
     }
   }
   __syncthreads();
@@ -298,16 +407,23 @@ int launch(const float* a, const float* b, float* o, const Shape& sh,
   return (int)cudaGetLastError();
 }
 
+Shape make_shape(int S, int G, int m, int k, int p, int bf16) {
+  Shape sh;
+  sh.S = S; sh.G = G; sh.m = m; sh.k = k; sh.p = p;
+  const int depth = bf16 ? 16 : 8;
+  sh.kp = (k + depth - 1) / depth * depth;
+  sh.m16 = (m + 15) / 16 * 16;
+  sh.n_chunks = (p + kPC - 1) / kPC;
+  return sh;
+}
+
 }  // namespace
 
 // Shared memory a launch needs (bytes), so the wrapper can refuse a shape
 // before it launches.
 extern "C" long long contraction_depth_smem(int m, int k, int bf16,
                                             int sublanes) {
-  Shape sh{};
-  const int depth = bf16 ? 16 : 8;
-  sh.kp = (k + depth - 1) / depth * depth;
-  sh.m16 = (m + 15) / 16 * 16;
+  const Shape sh = make_shape(1, 1, m, k, kPC, bf16);
   size_t bytes;
   if (bf16) {
     bytes = sublanes ? Layout<true, true>::bytes(sh)
@@ -323,12 +439,7 @@ extern "C" int contraction_depth(const void* a, const void* b, void* o, int S,
                                  int G, int m, int k, int p, int bf16,
                                  int sublanes, void* stream) {
   if (S == 0 || p == 0) return 0;
-  Shape sh;
-  sh.S = S; sh.G = G; sh.m = m; sh.k = k; sh.p = p;
-  const int depth = bf16 ? 16 : 8;
-  sh.kp = (k + depth - 1) / depth * depth;
-  sh.m16 = (m + 15) / 16 * 16;
-  sh.n_chunks = (p + kPC - 1) / kPC;
+  const Shape sh = make_shape(S, G, m, k, p, bf16);
   const float* fa = (const float*)a;
   const float* fb = (const float*)b;
   float* fo = (float*)o;

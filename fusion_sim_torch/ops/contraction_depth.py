@@ -17,7 +17,8 @@ Precision mapping (the experiment's second variable):
   accumulator.
 * ``'highest'`` is f32-accurate through several passes on the TPU.  On the
   card: 3xTF32, ``mma.sync.m16n8k8`` on the TF32 hi and lo parts
-  (``cvt.rna.tf32.f32``), a_hi.b_hi + a_hi.b_lo + a_lo.b_hi.
+  (rounded to nearest, ties away, as ``cvt.rna.tf32.f32`` rounds),
+  a_hi.b_hi + a_hi.b_lo + a_lo.b_hi.
 
 Depth is the experiment's variable: the kernel pads k with zeros in
 shared memory to the instruction's depth (``padded_depth``: 16 for bf16,
@@ -127,11 +128,13 @@ def _launch(a, b, order, precision, s, g, m, k, p):
     f32 = torch.float32
     _check("a", a, f32, tuple(a.shape), dev, align=16)
     _check("b", b, f32, (s, g, k, p), dev, align=16)
-    # the kernel stages rows with float4 loads
-    if (m * k) % 4 or p % 4:
-        raise ValueError(f"the kernel needs m*k and p multiples of 4; got "
+    # the kernel copies rows of A and B in 16-byte pieces: A's rows are k
+    # long (lhs_k_lanes) or m long (lhs_k_sublanes), B's p long
+    row = "k" if order == "lhs_k_lanes" else "m"
+    if (k if row == "k" else m) % 4 or p % 4:
+        raise ValueError(f"the kernel needs {row} and p multiples of 4; got "
                          f"m={m}, k={k}, p={p}")
-    if m * k >= 2 ** 31 or s * -(-p // 128) >= 2 ** 31:
+    if m * k >= 2 ** 31 or s * -(-p // 256) >= 2 ** 31:
         raise ValueError("the kernel indexes a tile of A and its grid with "
                          "32-bit ints")
     bf16, sublanes = int(precision == "default"), int(order != "lhs_k_lanes")

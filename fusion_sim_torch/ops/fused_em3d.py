@@ -37,7 +37,9 @@ are nonzero (2 or 3 of them while the drift stays under a cell; more for a
 faster row, which the window form covers too).
 
 On a CUDA tensor ``fused_em3d_substep`` launches the hand-written kernel
-``csrc/em3d_substep.cu`` (counted in ``LAUNCHES``) or raises; on a CPU
+``csrc/em3d_substep.cu`` (counted in ``LAUNCHES``), one CTA a tile, which
+needs the layout's blocks sorted by tile id as ``build_padded_layout`` and
+the repair keep them, or raises; on a CPU
 tensor it runs ``fused_em3d_substep_plain``, the same function in plain
 PyTorch, which the tests hold against the JAX kernel and the card holds
 the kernel against.
@@ -205,6 +207,8 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.em3d_substep.argtypes = [p] * 9 + [i] * 13 + [f] * 10 + [p]
         lib.em3d_substep.restype = i
+        lib.em3d_substep_smem.argtypes = [i] * 3
+        lib.em3d_substep_smem.restype = ctypes.c_longlong
         lib.em3d_error_string.argtypes = [i]
         lib.em3d_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -227,7 +231,9 @@ def _launch(table, position, velocity, valid, tile_id, shape, tiling,
     if n >= 2 ** 31 or nx * ny * nz >= 2 ** 31 // 6:
         raise ValueError("the kernel counts rows and grid values with "
                          "32-bit ints")
-    smem = 4 * 3 * math.prod(tiling.window())
+    lib = _library()
+    # the current window (and the field window beside it where it fits)
+    smem = lib.em3d_substep_smem(*tiling.window())
     if smem > SHARED_MEMORY_LIMIT:
         raise ValueError(
             f"a {tiling.window()} window needs {smem} B of shared memory "
@@ -238,7 +244,6 @@ def _launch(table, position, velocity, valid, tile_id, shape, tiling,
     vel_out = torch.empty_like(velocity)
     j = torch.zeros((nx, ny, nz, 3), dtype=f32, device=dev)
     in_win = torch.empty((n,), dtype=torch.bool, device=dev)
-    lib = _library()
     err = lib.em3d_substep(
         table.data_ptr(), position.data_ptr(), velocity.data_ptr(),
         valid.data_ptr(), tile_id.data_ptr(), pos_out.data_ptr(),

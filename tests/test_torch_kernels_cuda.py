@@ -322,6 +322,56 @@ def test_fused_em3d_substep_kernel_matches_plain(cuda, margin, vscale, jitter,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("margin,block,vscale,relativistic,c_light", [
+    (2, 64, 0.3, False, 1.0), (2, 64, 2.0, True, 60.0),
+    (7, 128, 0.3, False, 1.0)])
+def test_fused_em3d_substep_kernel_pipeline_edges(cuda, margin, block, vscale,
+                                                  relativistic, c_light):
+    """The edges of the tile-owned kernel: every tile of a 16 x 16 x 32 grid
+    wraps its window at the periodic edge; the particles fill only x < 8,
+    so half the tiles are empty; a tile's ~16 blocks outrun one pass of
+    the CTA's threads; rows faster than a cell go through the warps'
+    queues; the sentinel blocks come back as given with in_win False; and
+    margin 7 (a 23^3 window) takes the form that reads the corners
+    through L1.  Positions, velocities and in_win bit for bit, J to 1e-5
+    of max|J|."""
+    from fusion_sim_torch.ops import fused_em3d
+    from fusion_sim_torch.ops.sorted_deposit import Tiling3D
+
+    shape = (16, 16, 32)
+    tiling = Tiling3D(tile=(8, 8, 8), block=block, margin=margin)
+    rng = np.random.default_rng(19)
+    pos = torch.tensor(rng.random((8192, 3)) * np.array([8, 16, 32]),
+                       dtype=torch.float32, device=cuda)
+    vel = torch.tensor(vscale * rng.standard_normal((8192, 3)),
+                       dtype=torch.float32, device=cuda)
+    tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
+        pos, shape, tiling, vel[:, 0], vel[:, 1], vel[:, 2],
+        derive_valid=True)
+    vel_p = torch.stack([v0, v1, v2], -1).contiguous()
+    n_tiles = 2 * 2 * 4
+    assert int((tid == n_tiles).sum()) > 0, "needs sentinel blocks"
+    table = torch.tensor(rng.standard_normal((*shape, 6)),
+                         dtype=torch.float32, device=cuda)
+    args = (table, pos_p.contiguous(), vel_p, valid, tid, shape, tiling, 0.1,
+            0.1, (0.5, 0.8, 0.6), -0.01)
+    kw = dict(c_light=c_light, relativistic=relativistic)
+    got = fused_em3d.fused_em3d_substep(*args, **kw)
+    plain = fused_em3d.fused_em3d_substep_plain(*args, **kw)
+    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
+        assert torch.equal(got[i], plain[i]), name
+    scale = float(plain[2].abs().max())
+    assert float((got[2] - plain[2]).abs().max()) <= 1e-5 * scale
+    sent = tid == n_tiles
+    assert torch.equal(got[0][sent], pos_p[sent])
+    assert torch.equal(got[1][sent], vel_p[sent])
+    assert not bool(got[3][sent].any())
+    if vscale > 1:
+        moved = (torch.floor(got[0]) != torch.floor(pos_p)).any(-1)
+        assert int((moved & got[3] & valid).sum()) > 100, "needs fast rows"
+
+
+@pytest.mark.cuda
 def test_3d_kernels_reject_bad_inputs(cuda):
     from fusion_sim_torch.ops import fused_em3d, fused_pic3d
     from fusion_sim_torch.ops.sorted_deposit import Tiling3D
@@ -387,6 +437,31 @@ def test_contraction_depth_kernel_matches_plain(cuda, order, precision, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,g,m,k,p", [
+    (3, 1, 96, 8, 128), (2, 1, 20, 40, 196), (4, 5, 36, 136, 100)])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("order", ["lhs_k_lanes", "lhs_k_sublanes"])
+def test_contraction_depth_kernel_pipeline_edges(cuda, order, precision, s, g,
+                                                 m, k, p):
+    """The ring's edges: G = 1 with a single stage (the prologue runs past
+    the last stage), G = 1 and odd G = 5 with K not a multiple of the
+    stage depth 16 (the depth rows beyond K copied as zeros), m not a
+    multiple of 16 and p not a multiple of 128.  Tolerances as above."""
+    from fusion_sim_torch.ops import contraction_depth as cd
+
+    gen = torch.Generator(device=cuda).manual_seed(k + g)
+    a_shape = (s, g, m, k) if order == "lhs_k_lanes" else (s, g, k, m)
+    a = torch.randn(a_shape, generator=gen, device=cuda)
+    b = torch.randn((s, g, k, p), generator=gen, device=cuda)
+    got = cd.contraction_depth(a, b, order, precision)
+    plain = cd.contraction_depth_plain(a, b, order, precision)
+    scale = cd.contraction_depth_plain(a.abs(), b.abs(), order, "highest")
+    tol = 1e-5 if precision == "highest" else 1e-4
+    assert got.shape == (s, 1, p)
+    assert bool(((got - plain).abs() <= tol * scale).all())
+
+
+@pytest.mark.cuda
 def test_contraction_depth_kernel_rejects_bad_inputs(cuda):
     from fusion_sim_torch.ops import contraction_depth as cd
 
@@ -400,7 +475,8 @@ def test_contraction_depth_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="multiples of 4"):
         cd.contraction_depth(a, torch.zeros((2, 2, 24, 130), device=cuda),
                              "lhs_k_lanes", "highest")
+    # the ring holds m16 rows of A a stage: m = 1024 needs ~298 KB
     with pytest.raises(ValueError, match="shared memory"):
-        cd.contraction_depth(torch.zeros((1, 1, 512, 128), device=cuda),
+        cd.contraction_depth(torch.zeros((1, 1, 1024, 128), device=cuda),
                              torch.zeros((1, 1, 128, 128), device=cuda),
                              "lhs_k_lanes", "highest")

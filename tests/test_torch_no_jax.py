@@ -121,3 +121,59 @@ def test_default_device_is_cuda():
     sim.step(1)
     assert sim.state.position.device.type == "cpu"
     assert bool(torch.isfinite(sim.state.position).all())
+
+
+def _reference_root_names():
+    """The names the JAX package's root imports, read from its source (the
+    package itself is not imported here)."""
+    tree = ast.parse((ROOT / "fusion_sim_tpu" / "__init__.py").read_text())
+    return sorted(alias.asname or alias.name for node in tree.body
+                  if isinstance(node, ast.ImportFrom)
+                  for alias in node.names)
+
+
+def test_package_root_exports_the_reference_names():
+    assert _reference_root_names() == sorted(
+        ["config", "constants", "CylindricalParticlePusher", "PusherSpec",
+         "make_cylindrical_particle_pusher"])
+
+
+@pytest.mark.parametrize("name", ["config", "constants",
+                                  "CylindricalParticlePusher", "PusherSpec",
+                                  "make_cylindrical_particle_pusher"])
+def test_package_root_export_is_its_modules_object(name):
+    import importlib
+
+    import fusion_sim_torch
+
+    exported = getattr(fusion_sim_torch, name)
+    home = (f"fusion_sim_torch.{name}" if name in ("config", "constants")
+            else "fusion_sim_torch.models.pusher")
+    module = importlib.import_module(home)
+    expected = module if name in ("config", "constants") else getattr(
+        module, name)
+    assert exported is expected
+    ns = {}
+    exec(f"from fusion_sim_torch import {name}", ns)
+    assert ns[name] is expected
+
+
+def test_importing_the_package_root_builds_no_kernel():
+    """A fresh interpreter in which starting a process fails imports the
+    root and its exports: no nvcc runs and no kernel library is loaded."""
+    import subprocess
+    import sys
+
+    code = ("import subprocess, sys\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError('a process was started')\n"
+            "subprocess.Popen = refuse\n"
+            "from fusion_sim_torch import (CylindricalParticlePusher, "
+            "PusherSpec, make_cylindrical_particle_pusher, config, "
+            "constants)\n"
+            "b = sys.modules.get('fusion_sim_torch.ops._build')\n"
+            "print(0 if b is None else len(b._LOADED))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0"
