@@ -24,7 +24,13 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                and heavy-spill inputs (B6 also relativistic, and both
                forms of its field read: the staged window and, at margin
                7, the corners through L1), then small 3D ES and EM runs on
-               the card against the CPU across resorts; X1
+               the card against the CPU across resorts; the B5 and B3 cases
+               of tests/test_torch_kernels_cuda.py in a process of their
+               own (B5: empty tiles, tiles of one block and of twenty,
+               sentinel blocks, rows by tile, by cell and shuffled inside
+               each tile, heavy spill, the largest windows and the
+               smallest refused one; B3: 1, 3, 6, 12 and 13 channels in
+               both modes and the edges of its periodic wrap); X1
                (contraction_depth) at m = 96, p = 256, G = 4, S = 8 for
                both orders, both precisions and every K, and at the edges
                of its load ring (G 1 and 5, K 8, 40 and 136, m 20 and 36,
@@ -48,7 +54,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                timed on the path's own inputs, one profiled window;
 5b. pallas   — the same scenario at 1,048,576 protons with
                ``backend='pallas'`` (resort 12, respawn 512, spill 32768):
-               B3 launches and drops checked, B3 timed on the path's inputs,
+               B3 launches by form (2 + 2 a step: nearest C = 12 and the
+               C = 1 sink) and drops checked, each form held bit for bit
+               against its plain version and timed on the path's inputs,
                one profiled window;
 6. EM main path — ``SortedElectromagneticPIC(gather_backend='fused')`` at
                the EM rung's size (10,002,432 particles, 512^2, cell 0.5,
@@ -65,10 +73,12 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 7. 3D ES main path — ``SortedElectrostaticPIC(backend='pallas')`` with a
                3D config at the 3D rung's size (29,997,056 particles,
                128^3, L = 2 pi, dt 0.05, ``Tiling3D((8, 8, 8), 512,
-               margin=2)``, resort every 6): one warm window, three timed
-               windows; B5 launches, drops, validity, finiteness and charge
-               checked, B5 timed against its plain version and its bound on
-               the path's own inputs, one profiled window;
+               margin=2)``, resort every 6; the shell orders each tile's
+               rows by cell): one warm window, three timed windows; B5
+               launches, drops, validity, finiteness, charge and the cell
+               order after the resort checked, B5 timed against its plain
+               version and its bound on the path's own inputs, the resort
+               timed by cell and by tile, one profiled window;
 8. 3D EM main path — ``SortedElectromagneticPIC(gather_backend='fused')``
                with a 3D config at the same size (cell 0.5, dt 0.1, charge
                -0.01, mass 0.01, centered gather, the same tiling, resort
@@ -97,10 +107,11 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                printed, steps/s beside phase 6's resort-12 figure, one
                profiled window.
 
-The line before the last lists the kernels as JSON (B3 twice: once for
-each path that runs it; X1 with its sweep's launches and the numbers of
-its lhs_k_lanes / highest / K = 128 variant); the last line is the
-result: ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The line before the last lists the kernels as JSON (B3 once a form: the
+pusher's nearest C = 12 and C = 1, the EM route's cic C = 6; X1 with its
+sweep's launches and the numbers of its lhs_k_lanes / highest / K = 128
+variant); the last line is the result: ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -131,7 +142,11 @@ def log(phase: str, msg: str) -> None:
 
 
 def median_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events).  Each
+    run is queued behind ~0.5 ms of device sleep, so the host's own work
+    in ``fn`` (a wrapper's checks and allocations, the launch) overlaps the
+    sleep and stays out of the time; a kernel shorter than that host work
+    is otherwise timed at the host's pace."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -139,6 +154,7 @@ def median_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         a.record()
         fn()
         b.record()
@@ -148,9 +164,11 @@ def median_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
 
 
 def zero_counts(kernel_modules) -> None:
-    """Every kernel's launch count to 0, just before a path is driven."""
+    """Every kernel's launch count (and B3's counts by form) to 0, just
+    before a path is driven."""
     for mod in kernel_modules:
         mod.LAUNCHES = 0
+        getattr(mod, "FORM_LAUNCHES", {}).clear()
 
 
 def bound(bytes_moved: float, ops: float):
@@ -570,6 +588,28 @@ def phase3_pusher(torch, pm, ps, sc, fpu, sg, Tiling2D, dev):
                          f"max|dpos| {errs[0]:.3g}, max|dvel| {errs[1]:.3g}")
 
 
+def phase3_card_cases() -> None:
+    """The B5 and B3 cases of tests/test_torch_kernels_cuda.py on the card,
+    in a process of their own: B5 on empty tiles, tiles of one block and of
+    twenty, sentinel blocks, rows by tile, by cell and shuffled inside each
+    tile, heavy spill, the largest windows and the smallest refused one;
+    B3 with 1, 3, 6, 12 and 13 channels in both modes and at the edges of
+    its periodic wrap."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         "-p", "no:cacheprovider", "tests/test_torch_kernels_cuda.py", "-k",
+         "es3d or gather2d or 3d_kernels_reject"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines or "passed" not in lines[-1] \
+            or "skipped" in lines[-1] or "failed" in lines[-1]:
+        raise AssertionError("the B5/B3 card cases failed:\n"
+                             + "\n".join(lines[-40:]) + out.stderr[-2000:])
+    log("3 kernels", f"B5 and B3 card cases (tests/test_torch_kernels_cuda"
+                     f".py): {lines[-1]} ({time.perf_counter() - t0:.1f} s)")
+
+
 def run_windows(torch, sim, windows: int, cadence: int):
     rates = []
     for _ in range(windows):
@@ -695,41 +735,57 @@ def phase5b_pallas(torch, pm, sc, sg, Tiling2D, smi, kernel_modules):
     zero_counts(kernel_modules)
     rates = run_windows(torch, sim, 2, cadence)
     launches = sg.LAUNCHES
+    forms = dict(sg.FORM_LAUNCHES)
     steps = 2 * cadence
-    if launches != 4 * steps:
-        raise AssertionError(f"B3 launches {launches} != 4 x {steps} steps")
+    # each half-step: the 12 field channels at the row, the sink at the
+    # next position
+    if launches != 4 * steps or forms != {"nearest C=12": 2 * steps,
+                                          "nearest C=1": 2 * steps}:
+        raise AssertionError(f"B3 launches {launches} ({forms}) != 2 + 2 "
+                             f"a step over {steps} steps")
     st = sim._sorted_state
     check_pusher_state(torch, st, n)
     rate = float(np.median(rates))
     log("5b pallas", f"{smi}: {steps} timed steps, windows "
                      f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, "
                      f"median {rate:.3f} steps/s = {2 * n * rate:.4g} "
-                     f"pushes/s; B3 launches {launches}; spill patched "
-                     f"{st.spill - spill0}, dropped {st.dropped}, "
+                     f"pushes/s; B3 launches {launches} ({forms}); spill "
+                     f"patched {st.spill - spill0}, dropped {st.dropped}, "
                      f"dropped_over {st.dropped_over}")
     shape = (400, 800)
-    args = (pack_coefficients(sim.fields.coeffs),
-            cell_coords(st.position, *shape), st.tile_id, shape,
-            sim._sorted_tiling, "nearest")
-    err, report = compare_gather(torch, sg, args, st.valid)
-    k_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window(*args))
-    p_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window_plain(*args),
-                     reps=5, warm=1)
-    b_ms, b_by, b_bytes = gather_bound_ms(rows, 12, shape, 1024, "nearest")
-    log("5b pallas", f"gather2d nearest C=12 on the path's inputs ({rows} "
-                     f"rows): {report}; kernel {k_ms:.4f} ms "
-                     f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective),"
-                     f" plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    nxt = st.position + sim.spec.step_factor * st.velocity
+    records = []
+    for form, label, grid, pos in (
+            ("nearest C=12", "pusher", pack_coefficients(sim.fields.coeffs),
+             cell_coords(st.position, *shape)),
+            ("nearest C=1", "pusher sink", sim.fields.sink_mask[..., None],
+             cell_coords(nxt, *shape))):
+        args = (grid, pos, st.tile_id, shape, sim._sorted_tiling, "nearest")
+        err, report = compare_gather(torch, sg, args, st.valid)
+        if err != 0.0:
+            raise AssertionError(f"B3 {form} differs from its plain version "
+                                 f"by {err} on the path's inputs")
+        k_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window(*args))
+        p_ms = median_ms(torch, lambda: sg.gather_sorted_2d_window_plain(
+            *args), reps=5, warm=1)
+        b_ms, b_by, b_bytes = gather_bound_ms(rows, grid.shape[2], shape,
+                                              1024, "nearest")
+        log("5b pallas", f"gather2d {form} ({label}) on the path's inputs "
+                         f"({rows} rows): {report}; kernel {k_ms:.4f} ms "
+                         f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s "
+                         f"effective), plain {p_ms:.4f} ms, bound "
+                         f"{b_ms:.4f} ms ({b_by})")
+        records.append({
+            "name": f"B3:gather2d ({label}, {form})", "route": "cuda",
+            "source": "fusion_sim_torch/csrc/gather2d.cu",
+            "replaces": "fusion_sim_tpu/ops/pallas_gather.py:98",
+            "launches": forms[form], "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
     profile_window(torch, "5b pallas", f"{cadence} steps + resort",
                    lambda: sim.step(cadence))
-    return {
-        "name": "B3:gather2d", "route": "cuda",
-        "source": "fusion_sim_torch/csrc/gather2d.cu",
-        "replaces": "fusion_sim_tpu/ops/pallas_gather.py:98",
-        "launches": launches, "max_abs_err": err, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
-    }
+    return records
 
 
 # -- EM (kernel B4, and B3 on the pallas route) ---------------------------------
@@ -985,8 +1041,9 @@ def phase6b_em_pallas(torch, em, sg, Tiling2D, smi, kernel_modules,
     rates = run_windows(torch, sim, 2, resort)
     launches = sg.LAUNCHES
     steps = 2 * resort
-    if launches != steps:
-        raise AssertionError(f"B3 launches {launches} != steps {steps}")
+    if launches != steps or sg.FORM_LAUNCHES != {"cic C=6": steps}:
+        raise AssertionError(f"B3 launches {launches} "
+                             f"({sg.FORM_LAUNCHES}) != steps {steps}")
     check_em_state(torch, sim.state, n)
     rate = float(np.median(rates))
     log("6b EM pallas", f"{smi}: {steps} timed steps, windows "
@@ -1280,6 +1337,17 @@ def phase7_es3d_main(torch, es, f3, Tiling3D, smi, kernel_modules,
     if rel > 1e-5:
         raise AssertionError(f"charge {q} vs n*w0 {n * w0}: {rel:.3g} "
                              f"relative")
+    # the shell's layout orders each tile's rows by cell: after the window's
+    # resort the real rows of a tile follow their cells
+    from fusion_sim_torch.ops.sorted_deposit import (build_padded_layout,
+                                                     tile_cell_keys)
+    keys = tile_cell_keys(st.position, cfg.grid_shape, tiling)[st.valid]
+    tids = st.tile_id[st.valid]
+    unordered = int(((keys[1:] < keys[:-1]) & (tids[1:] == tids[:-1])).sum())
+    if unordered:
+        raise AssertionError(f"{unordered} real rows out of cell order "
+                             f"after the resort")
+    del keys, tids
     rate = float(np.median(rates))
     log("7 ES 3D", f"{smi}: {steps} timed steps, windows "
                    f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, median "
@@ -1307,6 +1375,19 @@ def phase7_es3d_main(torch, es, f3, Tiling3D, smi, kernel_modules,
                    f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     solve_ms = median_ms(torch, lambda: es.solve_fields(cfg, rho))
     log("7 ES 3D", f"solve_fields (cuFFT, 128^3) {solve_ms:.4f} ms")
+
+    def relayout(cell_order):
+        return lambda: build_padded_layout(
+            st.position, cfg.grid_shape, tiling, *st.velocity.unbind(-1),
+            valid=st.valid, derive_valid=True, cell_order=cell_order)
+    by_tile = [median_ms(torch, relayout(False), reps=5, warm=1)]
+    by_cell = [median_ms(torch, relayout(True), reps=5, warm=1)
+               for _ in range(2)]
+    by_tile.append(median_ms(torch, relayout(False), reps=5, warm=1))
+    log("7 ES 3D", f"resort (build_padded_layout, {rows} rows): rows by "
+                   f"cell {np.mean(by_cell):.4f} ms (the shell's), by tile "
+                   f"{np.mean(by_tile):.4f} ms; real rows in cell order "
+                   f"after the resort")
     del args, e_grid, rho
     profile_window(torch, "7 ES 3D", f"{resort} steps + resort",
                    lambda: sim.step(resort))
@@ -1961,6 +2042,7 @@ def main() -> None:
     phase3_pusher(torch, pm, ps, sc, fpu, sg, Tiling2D, dev)
     phase3_em(torch, em, fe, Tiling2D, build_padded_layout, dev)
     phase3_3d(torch, es, em, f3, fe3, Tiling3D, build_padded_layout, dev)
+    phase3_card_cases()
     phase3_x1(torch, cd, dev)
     phase3_slice(torch, es, em, pm, ps, an, sc, Tiling2D, Tiling3D, dev)
     log("3 kernels", f"done at {time.perf_counter() - t_start:.1f} s")
@@ -2007,7 +2089,7 @@ def main() -> None:
                       em_resort_rate)
     log("11 EM repair", f"done at {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [b1, b2, b3, b4, b3_em, b5, b6, x1]}),
+    print(json.dumps({"kernels": [b1, b2, *b3, b4, b3_em, b5, b6, x1]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

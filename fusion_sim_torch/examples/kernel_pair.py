@@ -1,30 +1,52 @@
-"""Kernels X1 and B6 of this checkout against another checkout's, on one
-CUDA card, with the EM 3D main path of both.
+"""This checkout's kernels against another checkout's, on one CUDA card,
+with the main paths of both.
 
     python -m fusion_sim_torch.examples.kernel_pair --other DIR \\
-        [--ablate] [--em3d-path]
+        [--kernels b5,b3,b6,x1] [--ablate] [--es3d-path] [--em3d-path] \\
+        [--pusher-path] [--em-pallas-path]
 
-``DIR`` holds another commit's ``fusion_sim_torch/`` (and, for
-``--em3d-path``, its ``chip_smoke.py``): for example the parent commit,
-unpacked with ``git archive <commit> fusion_sim_torch chip_smoke.py | tar
--x -C DIR`` into a directory that ``.gitignore`` lists.  Its kernel sources
-are built with this checkout's nvcc flags into ``DIR/fusion_sim_torch/
-build/``.  Every pair is timed in one process, in turns (other, this,
-this, other), each a median of 10 launches by CUDA events:
+``DIR`` holds another commit's ``fusion_sim_torch/`` and ``chip_smoke.py``:
+for example the parent commit, unpacked with ``git archive <commit>
+fusion_sim_torch chip_smoke.py | tar -x -C DIR`` into a directory that
+``.gitignore`` lists.  Its kernel sources are built with this checkout's
+nvcc flags into ``DIR/fusion_sim_torch/build/``.  Every pair is timed in
+one process, in turns (other, this, this, other), each a median of 10
+launches by CUDA events, on the inputs of the main path that runs the
+kernel; both checkouts' kernels are launched alike, through their C
+interface (which both keep) into outputs allocated once, so that the
+wrapper's host work is in neither time:
 
+* B5 (``es3d_substep``): the ES 3D main path (29,997,056 particles on
+  128^3, ``Tiling3D((8, 8, 8), 512, margin=2)``, ``chip_smoke.py``'s
+  configuration) 3 steps into a window, E solved from its rho; both
+  kernels on the rows ordered by cell inside each tile (the ES 3D shell's
+  layout) and on the same rows ordered by tile only, in no order inside a
+  tile (the parent's layout); this checkout's output
+  held against the plain version bit for bit on positions, velocities and
+  in_win; and the resort (``build_padded_layout``) by tile and by cell;
+* B3 (``gather2d``) in each form on its path's inputs: nearest with 12
+  channels (the pusher's field rows) and with 1 (its sink mask) on the
+  pallas pusher at 1,048,576 protons after one window, cic with 6 channels
+  on the EM pallas route at 1,048,576 particles after one window; this
+  checkout's output held against the plain version bit for bit;
+* B6 (``em3d_substep``) on the EM 3D main path's layout (the same
+  particles, a seeded E|B table of scale 0.01), held against the plain
+  version bit for bit, and this checkout's B6 on the rows ordered by cell;
 * X1 (``contraction_depth``) over the experiment's default sweep (S 305,
-  G 32, m 96, p 1024; both orders, both precisions, K 24 .. 128), this
-  checkout's output held against the plain version;
-* B6 (``em3d_substep``) on the EM 3D main path's layout (29,997,056
-  particles on 128^3, ``Tiling3D((8, 8, 8), 512, margin=2)``, velocities
-  0.05 N(0, 1), a seeded E|B table of scale 0.01), held against the plain
-  version bit for bit on positions, velocities and in_win;
-* ``--ablate``: B6 of both checkouts rebuilt with its corner reads
-  replaced by constants ("no gather") and with its deposit switched off
-  ("no deposit"), timed on the same inputs: what each part costs;
-* ``--em3d-path``: ``chip_smoke.py``'s phase 8 (the EM 3D main path,
-  steps/s and B6 on the path's own inputs) of each checkout in its own
-  process, other, this, this, other.
+  G 32, m 96, p 1024; both orders, both precisions, K 24 .. 128);
+* ``--ablate``: B5 and B6 of both checkouts rebuilt with their corner
+  reads replaced by constants ("no gather") and with their deposit
+  switched off ("no deposit"), and this checkout's B3 with its grid reads
+  replaced by zeros ("no grid read"), timed on the same inputs: what each
+  part costs;
+* ``--es3d-path``, ``--em3d-path``, ``--pusher-path``,
+  ``--em-pallas-path``: ``chip_smoke.py``'s phase 7 (ES 3D), 8 (EM 3D),
+  5b (the pallas pusher) or 6b (the EM pallas route) of each checkout in
+  its own process, other, this, this, other: steps/s and the kernel on the
+  path's own inputs; ``--resort-path``: each checkout's 3D resort
+  (``build_padded_layout``) on the ES 3D path's state after a window, by
+  tile and, in a checkout that has it, by cell (the EM 3D shell's resort
+  is the same call by tile).
 
 Prints one line a measurement, the card's name and power limit first.
 Imports nothing of JAX; exits non-zero without a card.
@@ -34,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import math
 import re
 import subprocess
 import sys
@@ -45,37 +68,116 @@ import torch
 from ..ops import _build
 from ..ops import contraction_depth as cd
 from ..ops import fused_em3d as fe3
+from ..ops import fused_pic3d as f3
+from ..ops import sorted_gather as sg
 from ..ops.sorted_deposit import Tiling3D, build_padded_layout
 
 ROOT = _build.PACKAGE.parent
 DEPTHS = (24, 32, 48, 96, 128)
-# source edits of B6 for --ablate: (name, [(text, replacement), ...]); each
-# edit must change the source
-ABLATIONS = (
-    ("no gather", [
-        ("v[a][bb][d] = __ldg(q[a][bb][d] + c);",
-         "v[a][bb][d] = make_float2(1e-3f * (a + bb + d + c), 0.0f);"),
-        ("v[a][bb][d] = *src;",
-         "v[a][bb][d] = make_float2(1e-3f * (a + bb + d + c), 0.0f);")]),
-    ("no deposit", [
-        ("if (inw && valid[row]) {",
-         "if (inw && valid[row] && p.n_tiles < 0) {")]),
-)
-PHASE8 = r'''
+KERNELS = ("b5", "b3", "b6", "x1")
+# source edits for --ablate, by source: (name, [(text, replacement), ...]);
+# the edits cover this checkout's source and its parent's, and each
+# ablation must change the source it is applied to
+ABLATIONS = {
+    "em3d_substep": (
+        ("no gather", [
+            ("v[a][bb][d] = __ldg(q[a][bb][d] + c);",
+             "v[a][bb][d] = make_float2(1e-3f * (a + bb + d + c), 0.0f);"),
+            ("v[a][bb][d] = *src;",
+             "v[a][bb][d] = make_float2(1e-3f * (a + bb + d + c), 0.0f);")]),
+        ("no deposit", [
+            ("if (inw && valid[row]) {",
+             "if (inw && valid[row] && p.n_tiles < 0) {")]),
+    ),
+    "es3d_substep": (
+        ("no gather", [
+            ("q[a] = make_float3(e[0], e[1], e[2]);",
+             "q[a] = make_float3(1e-3f * a, 2e-3f, 3e-3f);"),
+            ("""e0[c] = c00 * q0[c] + c01 * q0[3 + c] + c10 * q0[sy + c]
+                  + c11 * q0[sy + 3 + c];""", "e0[c] = 1e-3f * (c + 1);"),
+            ("""e1[c] = c00 * q1[c] + c01 * q1[3 + c] + c10 * q1[sy + c]
+                  + c11 * q1[sy + 3 + c];""", "e1[c] = 2e-3f * (c + 1);")]),
+        ("no deposit", [
+            ("if (__any_sync(kFull, dep)) {",
+             "if (__any_sync(kFull, dep) && p.n_tiles < 0) {"),
+            ("      if (inw && valid) {",
+             "      if (inw && valid && p.n_tiles < 0) {")]),
+    ),
+    # this checkout's B3 only
+    "gather2d": (
+        ("no grid read", [
+            ("namespace {\n", "namespace {\ntemplate <class T>\n"
+             "__device__ T ldg0(const T*) { return T{}; }\n"),
+            ("__ldg(", "ldg0(")]),
+    ),
+}
+# chip_smoke.py's phase of a path, run in the checkout's own directory
+PATH_RUN = r'''
 import json, subprocess, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
+from fusion_sim_torch import scenarios as sc
 from fusion_sim_torch.models import electromagnetic as em
+from fusion_sim_torch.models import electrostatic as es
+from fusion_sim_torch.models import pusher as pm
 from fusion_sim_torch.ops import fused_em3d as fe3
-from fusion_sim_torch.ops.sorted_deposit import Tiling3D
+from fusion_sim_torch.ops import fused_pic3d as f3
+from fusion_sim_torch.ops import sorted_gather as sg
+from fusion_sim_torch.ops.sorted_deposit import Tiling2D, Tiling3D
 torch.backends.cuda.matmul.allow_tf32 = False
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True).stdout.strip()
-rec = cs.phase8_em3d_main(torch, em, fe3, Tiling3D, smi, (fe3,))
-print("B6 on the path's inputs", json.dumps(rec), flush=True)
+mods = (fe3, f3, sg)
+rec = {call}
+print("kernel record", json.dumps(rec), flush=True)
 '''
+# the 3D resort of a checkout: its build_padded_layout on the ES 3D path's
+# state after a window (the EM 3D shell's resort is the same call), by tile
+# and, where the checkout has it, by cell
+RESORT = r'''
+def resorts():
+    import inspect
+    import numpy as np
+    from fusion_sim_torch.ops.sorted_deposit import build_padded_layout
+    tiling = Tiling3D(**cs.TILING_3D)
+    cfg = cs.es3d_config(es, cs.N_3D)
+    pos, vel = cs.rung_3d_particles(cs.N_3D)
+    sim = es.SortedElectrostaticPIC(cfg, pos, vel, tiling=tiling,
+                                    backend="pallas", resort_every=6,
+                                    check_spill=False)
+    sim.step(6)
+    st = sim.state
+    out = {}
+    for order in ((False, True) if "cell_order" in inspect.signature(
+            build_padded_layout).parameters else (None,)):
+        kw = {} if order is None else {"cell_order": order}
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            build_padded_layout(st.position, cfg.grid_shape, tiling,
+                                *st.velocity.unbind(-1), valid=st.valid,
+                                derive_valid=True, **kw)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        key = "by cell" if order else "by tile"
+        out[key] = float(np.median(times[2:]))
+        print(f"resort inputs: {st.position.shape[0]} rows, {key} "
+              f"{out[key]:.4f} ms", flush=True)
+    return out
+'''
+PATHS = {
+    "es3d": "cs.phase7_es3d_main(torch, es, f3, Tiling3D, smi, mods)",
+    "em3d": "cs.phase8_em3d_main(torch, em, fe3, Tiling3D, smi, mods)",
+    "pusher": "cs.phase5b_pallas(torch, pm, sc, sg, Tiling2D, smi, mods)",
+    "em-pallas": "cs.phase6b_em_pallas(torch, em, sg, Tiling2D, smi, mods)",
+    "resort": "resorts()",
+}
 
 
 def log(msg: str) -> None:
@@ -83,6 +185,8 @@ def log(msg: str) -> None:
 
 
 def median_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Median device time of ``fn`` (CUDA events), each run queued behind
+    ~0.5 ms of device sleep so that the host's launch work stays out."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -90,6 +194,7 @@ def median_ms(fn, reps: int = 10, warm: int = 2) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         a.record()
         fn()
         b.record()
@@ -129,17 +234,43 @@ def ablated_sources(src: Path, out_dir: Path, tag: str) -> dict[str, Path]:
     out_dir.mkdir(parents=True, exist_ok=True)
     text = src.read_text()
     out = {}
-    for name, edits in ABLATIONS:
+    for name, edits in ABLATIONS[src.stem]:
         edited = text
         for old, new in edits:
             edited = edited.replace(old, new)
         if edited == text:
             raise RuntimeError(f"ablation {name!r} changes nothing in {src}")
-        path = out_dir / f"em3d_{tag}_{name.replace(' ', '_')}.cu"
+        path = out_dir / f"{src.stem}_{tag}_{name.replace(' ', '_')}.cu"
         path.write_text(edited)
-        out[f"{tag}: {name}"] = path
+        out[f"{src.stem} {tag}: {name}"] = path
     return out
 
+
+def smoke():
+    """This checkout's chip_smoke.py as a module (its configurations)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return chip_smoke
+
+
+def check_fused(label, got, plain):
+    """A fused substep against its plain version: positions, velocities
+    and in_win bit for bit, the deposited grid within 1e-5 of its max;
+    returns the grid's error relative to its max."""
+    torch.cuda.synchronize()
+    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
+        if not bool(torch.equal(got[i], plain[i])):
+            raise AssertionError(f"{label} {name} differs from the plain "
+                                 f"version")
+    err = float((got[2] - plain[2]).abs().max())
+    scale = float(plain[2].abs().max())
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"{label}: grid differs: {err} > 1e-5 * "
+                             f"{scale}")
+    return err / scale
+
+
+# -- X1 -------------------------------------------------------------------------
 
 def x1_pairs(other) -> None:
     p_, i_ = ctypes.c_void_p, ctypes.c_int
@@ -188,7 +319,10 @@ def x1_pairs(other) -> None:
                 torch.cuda.empty_cache()
 
 
-def em3d_inputs(n: int = 29_997_056, cells: int = 128):
+# -- B6 -------------------------------------------------------------------------
+
+def em3d_inputs(n: int = 29_997_056, cells: int = 128,
+                cell_order: bool = False):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     pos = torch.tensor((rng.random((n, 3)) * cells).astype(np.float32),
@@ -199,7 +333,7 @@ def em3d_inputs(n: int = 29_997_056, cells: int = 128):
     shape = (cells,) * 3
     tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
         pos, shape, tiling, vel[:, 0], vel[:, 1], vel[:, 2],
-        derive_valid=True)
+        derive_valid=True, cell_order=cell_order)
     del pos, vel
     table = (0.01 * torch.randn((*shape, 6), device=dev,
                                 generator=torch.Generator(
@@ -240,47 +374,230 @@ def em3d_launcher(lib, args):
 
 def b6_pairs(other, ablations) -> None:
     args = em3d_inputs()
-    got = fe3.fused_em3d_substep(*args)
-    plain = fe3.fused_em3d_substep_plain(*args)
-    torch.cuda.synchronize()
-    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
-        if not bool(torch.equal(got[i], plain[i])):
-            raise AssertionError(f"B6 {name} differs from the plain version")
-    err = float((got[2] - plain[2]).abs().max())
-    scale = float(plain[2].abs().max())
-    if not err <= 1e-5 * scale:
-        raise AssertionError(f"B6 J differs: {err} > 1e-5 * {scale}")
-    del got, plain
-    this = lambda: fe3.fused_em3d_substep(*args)  # noqa: E731
-    o_ms, t_ms = in_turns(em3d_launcher(other, args), this)
+    err = check_fused("B6", fe3.fused_em3d_substep(*args),
+                      fe3.fused_em3d_substep_plain(*args))
+    this = fe3._library()
+    o_ms, t_ms = in_turns(em3d_launcher(other, args),
+                          em3d_launcher(this, args))
     log(f"B6 ({args[1].shape[0]} rows): other {o_ms:.4f} ms, this "
         f"{t_ms:.4f} ms ({o_ms / t_ms:.2f}x); this vs plain: positions, "
-        f"velocities and in_win equal, J within {err / scale:.2g} of max|J|")
+        f"velocities and in_win equal, J within {err:.2g} of max|J|")
     for name, lib in ablations.items():
         log(f"B6 {name}: {median_ms(em3d_launcher(lib, args)):.4f} ms")
+    tile = em3d_launcher(this, args)
+    cell = em3d_launcher(this, em3d_inputs(cell_order=True))
+    tile_ms, cell_ms = in_turns(tile, cell)
+    log(f"B6 of this checkout, rows by tile {tile_ms:.4f} ms, the same rows "
+        f"by cell inside each tile {cell_ms:.4f} ms")
+    del args, tile, cell
+    torch.cuda.empty_cache()
 
 
-def em3d_path(other_dir: Path) -> None:
+# -- B5 -------------------------------------------------------------------------
+
+def es3d_inputs(cs):
+    """The ES 3D main path's state 3 steps into a window, E solved from its
+    rho: (args by cell, args by tile, the model) with the shell's
+    cell-ordered layout and the same rows sorted by tile from a random
+    order."""
+    from ..models import electrostatic as es
+
+    tiling = Tiling3D(**cs.TILING_3D)
+    cfg = cs.es3d_config(es, cs.N_3D)
+    pos, vel = cs.rung_3d_particles(cs.N_3D)
+    sim = es.SortedElectrostaticPIC(cfg, pos, vel, tiling=tiling,
+                                    backend="pallas", resort_every=6,
+                                    check_spill=False)
+    del pos, vel
+    sim.step(3)
+    st = sim.state
+    rho = st.rho - torch.sum(st.rho) / math.prod(cfg.grid_shape)
+    _, e_grid = es.solve_fields(cfg, rho)
+    by_cell = cs.es3d_substep_args(torch, cfg, tiling, e_grid, st)
+    n = st.position.shape[0]
+    # the parent's layout: a stable sort by tile of rows in no order (the
+    # particles' own), so each tile's rows come in no order
+    perm = torch.randperm(n, device=st.position.device,
+                          generator=torch.Generator(
+                              device=st.position.device).manual_seed(3))
+    tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
+        st.position[perm], cfg.grid_shape, tiling,
+        *st.velocity[perm].unbind(-1), valid=st.valid[perm],
+        derive_valid=True)
+    st_t = es.SortedESState(pos_p[:n].contiguous(),
+                            torch.stack([v0, v1, v2], -1)[:n].contiguous(),
+                            tid[:n], valid[:n], 0, 0, 0)
+    by_tile = cs.es3d_substep_args(torch, cfg, tiling, e_grid, st_t)
+    return by_cell, by_tile, sim
+
+
+def es3d_launcher(lib, args):
+    """A closure launching ``lib``'s es3d_substep on ``args`` (the C
+    interface every checkout's B5 shares)."""
+    e_grid, pos, vel, w, tid, shape, tiling, qm_dt, cx, cy, cz = args
+    nts = tiling.n_tiles(shape)
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.es3d_substep.argtypes = [p_] * 9 + [i_] * 12 + [f_] * 4 + [p_]
+    lib.es3d_substep.restype = i_
+    pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
+    rho = torch.zeros(shape, device=pos.device)
+    in_win = torch.empty(pos.shape[0], dtype=torch.bool, device=pos.device)
+
+    def run():
+        rho.zero_()
+        err = lib.es3d_substep(
+            e_grid.data_ptr(), pos.data_ptr(), vel.data_ptr(), w.data_ptr(),
+            tid.data_ptr(), pos_out.data_ptr(), vel_out.data_ptr(),
+            rho.data_ptr(), in_win.data_ptr(), pos.shape[0], tiling.block,
+            *shape, nts[1], nts[2], math.prod(nts), *tiling.tile,
+            tiling.margin, qm_dt, cx, cy, cz,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"es3d_substep launch failed: {err}")
+    return run
+
+
+def b5_pairs(other, ablations, cs) -> None:
+    by_cell, by_tile, sim = es3d_inputs(cs)
+    for label, args in (("by cell", by_cell), ("by tile", by_tile)):
+        err = check_fused(f"B5 ({label})", f3.fused_es3d_substep(*args),
+                          f3.fused_es3d_substep_plain(*args))
+        o_ms, t_ms = in_turns(es3d_launcher(other, args),
+                              es3d_launcher(f3._library(), args))
+        log(f"B5 ({args[1].shape[0]} rows {label}): other {o_ms:.4f} ms, "
+            f"this {t_ms:.4f} ms ({o_ms / t_ms:.2f}x); this vs plain: "
+            f"positions, velocities and in_win equal, rho within {err:.2g} "
+            f"of max|rho|")
+        for name, lib in ablations.items():
+            log(f"B5 {label}, {name}: "
+                f"{median_ms(es3d_launcher(lib, args)):.4f} ms")
+    # the resort: the layout rebuilt from the path's state, by tile and by
+    # cell inside each tile
+    st = sim.state
+    cfg, tiling = sim.config, sim.tiling
+
+    def resort(cell_order):
+        return lambda: build_padded_layout(
+            st.position, cfg.grid_shape, tiling, *st.velocity.unbind(-1),
+            valid=st.valid, derive_valid=True, cell_order=cell_order)
+    tile_ms, cell_ms = in_turns(resort(False), resort(True))
+    log(f"resort ({st.position.shape[0]} rows): by tile {tile_ms:.4f} ms, "
+        f"by cell {cell_ms:.4f} ms")
+    del by_cell, by_tile, sim, st
+    torch.cuda.empty_cache()
+
+
+# -- B3 -------------------------------------------------------------------------
+
+def gather_launcher(lib, args):
+    """A closure launching ``lib``'s gather2d on ``args`` (the C interface
+    every checkout's B3 shares)."""
+    grid, pos, tid, shape, tiling, mode = args
+    n_c = grid[0, 0].numel()
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    lib.gather2d.argtypes = [p_] * 5 + [i_] * 10 + [p_]
+    lib.gather2d.restype = i_
+    out = torch.empty((pos.shape[0], n_c), device=pos.device)
+    in_win = torch.empty(pos.shape[0], dtype=torch.bool, device=pos.device)
+
+    def run():
+        err = lib.gather2d(
+            grid.data_ptr(), pos.data_ptr(), tid.data_ptr(), out.data_ptr(),
+            in_win.data_ptr(), pos.shape[0], n_c, tiling.block, *shape,
+            tiling.n_tiles(shape)[1], tiling.tile_r, tiling.tile_z,
+            tiling.margin, int(mode == "cic"),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"gather2d launch failed: {err}")
+    return run
+
+
+def b3_inputs(cs):
+    """Each form of B3 on its path's inputs: [(label, args, valid)]."""
+    from .. import scenarios as sc
+    from ..models import electromagnetic as em
+    from ..models import pusher as pm
+    from ..ops import fdtd
+    from ..ops.boris import pack_coefficients
+    from ..ops.fused_pusher import cell_coords
+    from ..ops.sorted_deposit import Tiling2D
+
+    sim = cs.pusher_sim(pm, sc, 1024)
+    sim.enable_sorted_path(backend="pallas", resort_every=12,
+                           spill_capacity=32768, respawn_capacity=512)
+    sim.step(12)
+    st, tiling, shape = sim._sorted_state, sim._sorted_tiling, (400, 800)
+    cell = cell_coords(st.position, *shape)
+    forms = [("nearest C=12 (pusher)",
+              (pack_coefficients(sim.fields.coeffs), cell, st.tile_id, shape,
+               tiling, "nearest"), st.valid),
+             ("nearest C=1 (pusher sink)",
+              (sim.fields.sink_mask[..., None].contiguous(), cell,
+               st.tile_id, shape, tiling, "nearest"), st.valid)]
+    em_sim = cs.em_sim(torch, em, Tiling2D, 1 << 20, "pallas", 12)
+    em_sim.step(12)
+    s = em_sim.state
+    table = fdtd.center_fields(s.e, s.b, fdtd.E_OFFSETS_2D, fdtd.B_OFFSETS_2D)
+    forms.append(("cic C=6 (EM route)",
+                  (table, s.position, s.tile_id, em_sim.config.grid_shape,
+                   em_sim.tiling, "cic"), s.valid))
+    return forms
+
+
+def b3_pairs(other, ablations, cs) -> None:
+    for label, args, valid in b3_inputs(cs):
+        got = sg.gather_sorted_2d_window(*args)
+        plain = sg.gather_sorted_2d_window_plain(*args)
+        if not (bool(torch.equal(got[1], plain[1]))
+                and bool(torch.equal(got[0][valid], plain[0][valid]))):
+            raise AssertionError(f"B3 {label} differs from the plain version")
+        del got, plain
+        o_ms, t_ms = in_turns(gather_launcher(other, args),
+                              gather_launcher(sg._library(), args))
+        n_c = args[0][0, 0].numel()
+        b_ms = cs.gather_bound_ms(args[1].shape[0], n_c, args[3],
+                                  args[4].block, args[5])[0]
+        log(f"B3 {label} ({args[1].shape[0]} rows): other {o_ms:.4f} ms, "
+            f"this {t_ms:.4f} ms ({o_ms / t_ms:.2f}x), bound {b_ms:.4f} ms "
+            f"({100 * b_ms / o_ms:.1f}% / {100 * b_ms / t_ms:.1f}%); this "
+            f"vs plain: values on valid rows and in_win equal")
+        for name, lib in ablations.items():
+            log(f"B3 {label}, {name}: "
+                f"{median_ms(gather_launcher(lib, args)):.4f} ms")
+    torch.cuda.empty_cache()
+
+
+def run_path(name: str, other_dir: Path) -> None:
+    code = PATH_RUN.replace("rec = {call}",
+                            (RESORT if name == "resort" else "")
+                            + "rec = " + PATHS[name])
     for label, cwd in (("other", other_dir), ("this", ROOT), ("this", ROOT),
                        ("other", other_dir)):
-        out = subprocess.run([sys.executable, "-c", PHASE8], cwd=cwd,
+        out = subprocess.run([sys.executable, "-c", code], cwd=cwd,
                              capture_output=True, text=True)
         for line in out.stdout.splitlines():
-            if "steps/s" in line or "on the main path's inputs" in line \
-                    or line.startswith("B6 "):
-                log(f"EM 3D path, {label}: {line}")
+            if "steps/s" in line or "inputs" in line \
+                    or line.startswith("kernel record"):
+                log(f"{name} path, {label}: {line}")
         if out.returncode:
-            raise RuntimeError(f"phase 8 of {cwd} failed:\n{out.stderr}")
+            raise RuntimeError(f"the {name} path of {cwd} failed:\n"
+                               f"{out.stderr}")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
                     help="a directory holding another commit's "
-                         "fusion_sim_torch/")
+                         "fusion_sim_torch/ and chip_smoke.py")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="the kernels to pair, of " + ",".join(KERNELS))
     ap.add_argument("--ablate", action="store_true")
-    ap.add_argument("--em3d-path", action="store_true")
+    for name in PATHS:
+        ap.add_argument(f"--{name}-path", action="store_true")
     ns = ap.parse_args(argv)
+    kernels = [k for k in ns.kernels.split(",") if k]
+    if set(kernels) - set(KERNELS):
+        ap.error(f"--kernels takes {','.join(KERNELS)}")
     if not torch.cuda.is_available():
         sys.exit("kernel_pair needs a CUDA card")
     other_dir = ns.other.resolve()
@@ -290,19 +607,35 @@ def main(argv=None) -> None:
                          text=True, check=True).stdout.strip()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.build_all()
-    sources = {"other_x1": other_csrc / "contraction_depth.cu",
-               "other_b6": other_csrc / "em3d_substep.cu"}
+    stems = {"b5": "es3d_substep", "b3": "gather2d", "b6": "em3d_substep",
+             "x1": "contraction_depth"}
+    sources = {f"other_{k}": other_csrc / f"{stems[k]}.cu" for k in kernels}
     ablate_dir = _build.BUILD / "ablate"
-    if ns.ablate:
-        sources.update(ablated_sources(_build.CSRC / "em3d_substep.cu",
-                                       ablate_dir, "this"))
-        sources.update(ablated_sources(other_csrc / "em3d_substep.cu",
-                                       ablate_dir, "other"))
+    for k in ("b5", "b3", "b6"):
+        if ns.ablate and k in kernels:
+            sources.update(ablated_sources(
+                _build.CSRC / f"{stems[k]}.cu", ablate_dir, "this"))
+            if k != "b3":
+                sources.update(ablated_sources(
+                    other_csrc / f"{stems[k]}.cu", ablate_dir, "other"))
     libs = build(sources, other_dir / "fusion_sim_torch" / "build")
-    x1_pairs(libs.pop("other_x1"))
-    b6_pairs(libs.pop("other_b6"), libs)
-    if ns.em3d_path:
-        em3d_path(other_dir)
+
+    def ablations(stem):
+        return {name.split(" ", 1)[1]: lib for name, lib in libs.items()
+                if name.startswith(stem + " ")}
+    cs = smoke()
+    for k in kernels:
+        if k == "b5":
+            b5_pairs(libs["other_b5"], ablations("es3d_substep"), cs)
+        elif k == "b3":
+            b3_pairs(libs["other_b3"], ablations("gather2d"), cs)
+        elif k == "b6":
+            b6_pairs(libs["other_b6"], ablations("em3d_substep"))
+        else:
+            x1_pairs(libs["other_x1"])
+    for name in PATHS:
+        if getattr(ns, f"{name.replace('-', '_')}_path"):
+            run_path(name, other_dir)
 
 
 if __name__ == "__main__":

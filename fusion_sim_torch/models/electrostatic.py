@@ -239,7 +239,10 @@ class SortedElectrostaticPIC:
     Constructor arguments, validation and defaults are the reference's;
     3D takes a ``Tiling3D``.  ``backend='pallas'`` runs the fused kernel
     (ops/fused_pic.py in 2D, ops/fused_pic3d.py in 3D), ``backend='xla'``
-    the plain windowed deposit and gather.
+    the plain windowed deposit and gather.  In 3D the layout orders each
+    tile's rows by cell (``build_padded_layout(cell_order=True)``), at
+    build and at every resort, so that kernel B5 sums a warp's rows of
+    one cell before it adds them to its window.
 
     ``repair=True`` relocates the spilled rows every step into dead slots
     of their new tile (ops/repair.py; the layout is built with ``reserve``
@@ -280,7 +283,7 @@ class SortedElectrostaticPIC:
         tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
             pos, config.grid_shape, self.tiling,
             *[vel[:, a] for a in range(ndim)], reserve=repair,
-            spread=repair, derive_valid=True)
+            spread=repair, derive_valid=True, cell_order=ndim == 3)
         self.state = SortedESState(
             position=pos_p, velocity=torch.stack(v_cols, dim=-1),
             tile_id=tid, valid=valid_p, step=0, spill=0, spill_dropped=0)
@@ -549,7 +552,8 @@ class SortedElectrostaticPIC:
         tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
             s.position, self.config.grid_shape, self.tiling,
             *s.velocity.unbind(-1), valid=s.valid, reserve=self.repair,
-            spread=self.repair, derive_valid=True)
+            spread=self.repair, derive_valid=True,
+            cell_order=self.config.n_dim == 3)
         self.state = s._replace(
             position=pos_p[:n_state],
             velocity=torch.stack([v[:n_state] for v in v_cols], dim=-1),

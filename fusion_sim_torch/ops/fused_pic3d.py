@@ -22,7 +22,10 @@ On a CUDA tensor ``fused_es3d_substep`` launches the hand-written kernel
 ``csrc/es3d_substep.cu`` (counted in ``LAUNCHES``) or raises; on a CPU
 tensor it runs ``fused_es3d_substep_plain``, the same function in plain
 PyTorch, which the tests hold against the JAX kernel and the card holds
-the kernel against.
+the kernel against.  The kernel needs the layout's blocks sorted by tile
+id, as ``build_padded_layout`` and the repair paths keep them; it is
+fastest when each tile's rows are ordered by cell
+(``build_padded_layout(cell_order=True)``, which the ES 3D shell uses).
 """
 
 from __future__ import annotations
@@ -141,6 +144,8 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.es3d_substep.argtypes = [p] * 9 + [i] * 12 + [f] * 4 + [p]
         lib.es3d_substep.restype = i
+        lib.es3d_substep_smem.argtypes = [i] * 3
+        lib.es3d_substep_smem.restype = ctypes.c_longlong
         lib.es3d_error_string.argtypes = [i]
         lib.es3d_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -163,7 +168,9 @@ def _launch(e_grid, position, velocity, weights, tile_id, shape, tiling,
     if n >= 2 ** 31 or nx * ny * nz >= 2 ** 31 // 3:
         raise ValueError("the kernel counts rows and grid values with "
                          "32-bit ints")
-    smem = 4 * 4 * math.prod(tiling.window())   # E (3 channels) + rho, f32
+    lib = _library()
+    # the E and rho windows
+    smem = lib.es3d_substep_smem(*tiling.window())
     if smem > SHARED_MEMORY_LIMIT:
         raise ValueError(
             f"a {tiling.window()} window needs {smem} B of shared memory "
@@ -173,7 +180,6 @@ def _launch(e_grid, position, velocity, weights, tile_id, shape, tiling,
     vel_out = torch.empty_like(velocity)
     rho = torch.zeros((nx, ny, nz), dtype=f32, device=dev)
     in_win = torch.empty((n,), dtype=torch.bool, device=dev)
-    lib = _library()
     err = lib.es3d_substep(
         e_grid.data_ptr(), position.data_ptr(), velocity.data_ptr(),
         weights.data_ptr(), tile_id.data_ptr(), pos_out.data_ptr(),

@@ -132,12 +132,41 @@ def tile_ids_3d(position: torch.Tensor, shape: tuple[int, int, int],
     return tid
 
 
+def tile_cell_keys(position: torch.Tensor, shape: tuple[int, ...],
+                   tiling) -> torch.Tensor:
+    """``tile * cells + cell`` per particle, int32: its flat tile id (as
+    ``tile_ids``/``tile_ids_3d`` give it, the base cell clamped into the
+    grid) times the cells of a tile, plus the flat index of its base cell
+    inside the tile (last axis fastest)."""
+    tile = ((tiling.tile_r, tiling.tile_z) if len(shape) == 2
+            else tuple(tiling.tile))
+    nts = tiling.n_tiles(shape)
+    dev = position.device
+
+    def ints(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    base = torch.minimum(torch.floor(position).to(torch.int32).clamp_(min=0),
+                         ints([n - 1 for n in shape]))
+    t = torch.div(base, ints(tile), rounding_mode="floor")
+    # with ts_a, cs_a the strides of the flat tile index and of the flat
+    # cell index inside a tile, and the cell base_a - t_a tile_a:
+    # tile * cells + cell = sum_a t_a (cells ts_a - tile_a cs_a) + base_a cs_a
+    # (the resort forms it for 30 M rows: few elementwise passes)
+    cells = math.prod(tile)
+    cs = [math.prod(tile[a + 1:]) for a in range(len(shape))]
+    coef = [cells * math.prod(nts[a + 1:]) - tile[a] * cs[a]
+            for a in range(len(shape))]
+    return (t * ints(coef) + base * ints(cs)).sum(-1, dtype=torch.int32)
+
+
 def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
                         tiling, *payloads: torch.Tensor,
                         valid: torch.Tensor | None = None,
                         reserve: bool = False,
                         spread: bool = False,
-                        derive_valid: bool = False):
+                        derive_valid: bool = False,
+                        cell_order: bool = False):
     """Sort particles by tile AND pad every tile's segment to a multiple of
     ``tiling.block`` with dead filler rows (position 0, payload 0).
 
@@ -155,10 +184,15 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
     to the tiles with the smallest pads), maximizing the per-tile repair
     inventory.  Neither changes the layout's length.
 
-    The sort is a stable ``torch.sort`` of the (tile, realness) key, then
-    one gather per column; the reference's sort promises no order inside a
-    tile, so the two agree on ``tile_id``/``valid`` and on each tile
-    segment as a set of rows.
+    ``cell_order``: the real rows of each tile follow in the order of their
+    cell inside the tile (``tile_cell_keys``), so that the rows of one cell
+    are neighbours; the fused kernels then sum a warp's rows of one cell
+    before they add them to the window.  Nothing else changes.
+
+    The sort is a stable ``torch.sort`` of the (tile[, cell], realness)
+    key, then one gather per column; the reference's sort promises no order
+    inside a tile, so the two agree on ``tile_id``/``valid`` and on each
+    tile segment as a set of rows.
     """
     n_tiles = math.prod(tiling.n_tiles(shape))
     p_blk = tiling.block
@@ -169,10 +203,18 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
     dev = position.device
     total_pad = n_tiles * p_blk
 
-    tid = (tile_ids if len(shape) == 2 else tile_ids_3d)(position, shape,
-                                                         tiling)
+    if cell_order:
+        cells = (tiling.tile_r * tiling.tile_z if len(shape) == 2
+                 else math.prod(tiling.tile))
+        row_key = tile_cell_keys(position, shape, tiling)
+        tid = torch.div(row_key, cells, rounding_mode="floor")
+    else:
+        cells = 1
+        tid = row_key = (tile_ids if len(shape) == 2 else tile_ids_3d)(
+            position, shape, tiling)
     if valid is not None:
         tid = torch.where(valid, tid, n_tiles)
+        row_key = torch.where(valid, row_key, n_tiles * cells)
     counts = torch.bincount(tid, minlength=n_tiles + 1)[:n_tiles]
     pads = torch.remainder(-counts, p_blk)
     if reserve:
@@ -192,8 +234,13 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
     filler_tile = torch.searchsorted(cum_pads, j, right=True)
     filler_tile = torch.where(j < cum_pads[-1], filler_tile, n_tiles)
 
-    # fillers after the real rows of their tile: key = 2*tile + is_filler
-    keys = torch.cat([tid * 2, filler_tile * 2 + 1])
+    # fillers after the real rows of their tile: key = 2*(tile*cells +
+    # cell) + is_filler (cells = 1 without cell_order), where a filler
+    # takes its tile's last cell
+    keys = torch.cat([row_key * 2,
+                      (filler_tile * cells + cells - 1) * 2 + 1])
+    if 2 * (n_tiles + 1) * cells < 2 ** 31:
+        keys = keys.to(torch.int32)    # half the radix passes of int64
     keys_s, order = torch.sort(keys, stable=True)
     real = order < n
     src = torch.where(real, order, 0)
@@ -203,15 +250,15 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
                            col[src], torch.zeros((), dtype=col.dtype,
                                                  device=dev))
 
-    out = [torch.div(keys_s, 2, rounding_mode="floor").to(torch.int32),
-           take(position)]
+    out = [torch.div(keys_s, 2 * cells, rounding_mode="floor").to(
+        torch.int32), take(position)]
     out += [take(p) for p in payloads]
     n_eff = n if valid is None else valid.sum()
     n_valid = n_eff + cum_pads[-1]
     if derive_valid:
         # real rows carry even keys; invalid real rows were re-keyed to the
-        # trailing tile (key = 2*n_tiles); fillers carry odd keys
-        out.append((keys_s % 2 == 0) & (keys_s < 2 * n_tiles))
+        # trailing tile (key = 2*n_tiles*cells); fillers carry odd keys
+        out.append((keys_s % 2 == 0) & (keys_s < 2 * n_tiles * cells))
     return (*out, n_valid)
 
 

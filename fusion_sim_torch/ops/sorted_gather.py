@@ -19,9 +19,9 @@ reference has them.  ``gather_sorted_2d`` (ops/sorted_deposit.py) is the
 other route, which clips floor(x) - origin into the window instead.
 
 On a CUDA tensor ``gather_sorted_2d_window`` launches the hand-written
-kernel ``csrc/gather2d.cu`` (counted in ``LAUNCHES``) or raises; on a CPU
-tensor it runs ``gather_sorted_2d_window_plain``, the same function in
-plain PyTorch.
+kernel ``csrc/gather2d.cu`` (counted in ``LAUNCHES``, and by form in
+``FORM_LAUNCHES``) or raises; on a CPU tensor it runs
+``gather_sorted_2d_window_plain``, the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ from .precision import resolve_precision
 from .sorted_deposit import window_origins
 
 LAUNCHES = 0  # kernel launches by gather_sorted_2d_window (CUDA only)
+# the same launches by form ("nearest C=12", "cic C=6", ...)
+FORM_LAUNCHES: dict[str, int] = {}
 MODES = ("nearest", "cic")
 
 
@@ -118,8 +120,9 @@ def _launch(grid, position, tile_id, shape, tiling, mode, channels):
     _check("grid", grid, torch.float32, (nr, nz, *channels), dev)
     _check("position", position, torch.float32, (n, 2), dev, align=8)
     _check("tile_id", tile_id, torch.int32, (n,), dev)
-    if n * n_c >= 2 ** 31 or nr * nz * n_c >= 2 ** 31:
-        raise ValueError("the kernel indexes values with 32-bit ints")
+    if n >= 2 ** 31 or nr * nz >= 2 ** 31:
+        raise ValueError("the kernel counts rows and grid cells with 32-bit "
+                         "ints")
     out = torch.empty((n, n_c), dtype=torch.float32, device=dev)
     in_win = torch.empty((n,), dtype=torch.bool, device=dev)
     lib = _library()
@@ -132,6 +135,8 @@ def _launch(grid, position, tile_id, shape, tiling, mode, channels):
         raise RuntimeError("gather2d launch failed: "
                            + lib.gather2d_error_string(err).decode())
     LAUNCHES += 1
+    form = f"{mode} C={n_c}"
+    FORM_LAUNCHES[form] = FORM_LAUNCHES.get(form, 0) + 1
     return out.reshape(n, *channels), in_win
 
 

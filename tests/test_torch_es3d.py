@@ -104,6 +104,61 @@ def test_sorted_es3d_matches_reference_across_a_resort_with_spill():
         np.testing.assert_allclose(e_p[key], e_r[key], rtol=1e-4)
 
 
+def test_sorted_es3d_by_cell_matches_reference_across_a_resort():
+    """Both models built from the same particles: the port's layout orders
+    each tile's rows by cell (the reference's promises no order inside a
+    tile), so from the first step the two agree per tile segment as sets;
+    3 steps, the resort and one more step, at speeds that spill past
+    margin 1.  At build and after the resort the port's real
+    rows follow their cells."""
+    from fusion_sim_torch.ops.sorted_deposit import tile_cell_keys
+
+    kw, pos, vel = _setup(vscale=3.0, seed=2)
+    args = dict(resort_every=3, backend="pallas", check_spill=False,
+                spill_capacity=512, spill_tiers=(32,))
+    ref = jes.SortedElectrostaticPIC(jes.ESConfig(**kw), pos, vel,
+                                     tiling=JTiling(**TILE), **args)
+    port = tes.SortedElectrostaticPIC(tes.ESConfig(**kw), pos, vel,
+                                      tiling=TTiling(**TILE), device="cpu",
+                                      **args)
+
+    def by_cell():
+        st = port.state
+        keys = tile_cell_keys(st.position, kw["grid_shape"],
+                              TTiling(**TILE))[st.valid].numpy()
+        tid = st.tile_id[st.valid].numpy()
+        return bool((np.diff(keys)[tid[1:] == tid[:-1]] >= 0).all())
+
+    assert by_cell()
+    for _ in range(3):               # single steps: one compiled step
+        ref.step(1)
+    port.step(3)                     # the window, then the resort
+    assert by_cell()
+    ref.step(1)                      # the resort, then a step
+    port.step(1)
+    assert port.state.spill == int(ref.state.spill) > 20, "needs spill"
+    assert port.state.spill_dropped == int(ref.state.spill_dropped) == 0
+    tid = port.state.tile_id.numpy()
+    np.testing.assert_array_equal(tid, np.asarray(ref.state.tile_id))
+    valid = port.state.valid.numpy()
+    np.testing.assert_array_equal(valid, np.asarray(ref.state.valid))
+    rho_r = np.asarray(ref.state.rho)
+    np.testing.assert_allclose(port.state.rho.numpy(), rho_r, rtol=0,
+                               atol=1e-5 * np.abs(rho_r).max())
+    for name, atol in (("position", 2e-5), ("velocity", 1e-5)):
+        a = getattr(port.state, name).numpy()
+        b = np.asarray(getattr(ref.state, name))
+        for t in np.unique(tid[valid]):
+            rows = valid & (tid == t)
+            for ax in range(3):
+                np.testing.assert_allclose(np.sort(a[rows, ax]),
+                                           np.sort(b[rows, ax]), rtol=0,
+                                           atol=atol, err_msg=name)
+    e_r, e_p = ref.energies(), port.energies()
+    for key in ("kinetic", "field", "total"):
+        np.testing.assert_allclose(e_p[key], e_r[key], rtol=1e-4)
+
+
 def test_sorted_es3d_port_tracks_port_plain_model():
     """tests/test_es_sorted.py's check on the port alone: the sorted 3D
     model follows the plain one through resorts and patched spills, and

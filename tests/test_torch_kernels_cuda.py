@@ -121,9 +121,10 @@ def test_fused_pusher_substep_kernel_matches_plain(cuda, vscale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,channels", [("nearest", (12,)),
-                                           ("nearest", (1,)), ("cic", (6,)),
-                                           ("cic", ())])
+@pytest.mark.parametrize("mode,channels", [
+    ("nearest", (12,)), ("nearest", (1,)), ("cic", (6,)), ("cic", ()),
+    ("nearest", (3,)), ("nearest", (6,)), ("nearest", (13,)), ("cic", (1,)),
+    ("cic", (3,)), ("cic", (12,)), ("cic", (13,))])
 def test_gather2d_kernel_matches_plain(cuda, mode, channels):
     from fusion_sim_torch.ops import sorted_gather
 
@@ -137,7 +138,11 @@ def test_gather2d_kernel_matches_plain(cuda, mode, channels):
                         dtype=torch.float32, device=cuda)
     tid, pos_p, valid, _ = build_padded_layout(pos, shape, tiling,
                                                derive_valid=True)
-    pos_p = torch.remainder(pos_p + 1.5 * torch.randn_like(pos_p),
+    # jitter from the seeded generator (the torch stream's draws depend on
+    # the tests that ran before)
+    jitter = torch.tensor(1.5 * rng.standard_normal(tuple(pos_p.shape)),
+                          dtype=torch.float32, device=cuda)
+    pos_p = torch.remainder(pos_p + jitter,
                             torch.tensor(shape, device=cuda,
                                          dtype=torch.float32))
     args = (grid, pos_p.contiguous(), tid, shape, tiling, mode)
@@ -148,6 +153,49 @@ def test_gather2d_kernel_matches_plain(cuda, mode, channels):
     assert torch.equal(got[1], plain[1])
     assert torch.equal(got[0][valid], plain[0][valid])
     assert int((~plain[1] & valid).sum()) > 100, "needs out-of-window rows"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest", "cic"])
+@pytest.mark.parametrize("n_c", [1, 3, 6, 12, 13])
+def test_gather2d_kernel_floor_mod_edges(cuda, mode, n_c):
+    """Rows whose x - origin is exactly 0, exactly n, -tiny (mod gives n),
+    just below 2n, exactly 2n and beyond, and below -n, on both axes: the
+    kernel's conditional +-n and its fmodf fallback give the plain
+    version's values and in_win bit for bit."""
+    from fusion_sim_torch.ops import sorted_gather
+    from fusion_sim_torch.ops.sorted_deposit import window_origins
+
+    shape = (64, 128)
+    tiling = Tiling2D(tile_r=16, tile_z=16, block=128, margin=2)
+    rng = np.random.default_rng(6)
+    n = 8192
+    pos = torch.tensor(rng.random((n, 2)) * np.array(shape),
+                       dtype=torch.float32, device=cuda)
+    grid = torch.tensor(rng.standard_normal(shape + (n_c,)),
+                        dtype=torch.float32, device=cuda)
+    tid, pos_p, valid, _ = build_padded_layout(pos, shape, tiling,
+                                               derive_valid=True)
+    origins = [o.repeat_interleave(tiling.block).to(torch.float32)
+               for o in window_origins(tid, shape, tiling)]
+    edges = []
+    for nn in shape:
+        edges.append(torch.tensor(
+            [0.0, nn, -2.0 ** -20, 2 * nn - 0.25, 2 * nn, 2 * nn + 0.5,
+             -nn - 0.5, nn - 2.0 ** -18, 0.5], device=cuda))
+    rows = valid.nonzero()[:, 0].cpu().numpy()
+    pick = torch.tensor(rng.permutation(rows)[:4096], device=cuda)
+    k = len(edges[0])
+    pos_p = pos_p.clone()
+    for a in range(2):
+        which = torch.tensor(rng.integers(0, k, pick.numel()), device=cuda)
+        pos_p[pick, a] = origins[a][pick] + edges[a][which]
+    args = (grid, pos_p.contiguous(), tid, shape, tiling, mode)
+    got = sorted_gather.gather_sorted_2d_window(*args)
+    plain = sorted_gather.gather_sorted_2d_window_plain(*args)
+    assert torch.equal(got[1], plain[1])
+    assert torch.equal(got[0][valid], plain[0][valid])
+    assert bool(plain[1][pick].any()) and not bool(plain[1][pick].all())
 
 
 def _em_case(cuda, vscale, shape=(64, 128), n=8192, seed=6):
@@ -289,6 +337,80 @@ def test_fused_es3d_substep_kernel_matches_plain(cuda, tile, margin, vscale,
         assert int((~plain[3] & valid).sum()) > 100, "needs actual spill"
 
 
+def _es3d_edge_layout(cuda, margin, vscale, order, seed=20):
+    """A 16 x 16 x 32 grid of 8^3 tiles (2 x 2 x 4) with block 64: tiles 0
+    and 3 hold no row, tile 1 exactly one block, tile 2 twenty blocks, the
+    others 30-200 rows; the trailing blocks carry the sentinel tile id.
+    ``order``: 'tile' (the stable tile sort), 'cell' (each tile's rows by
+    cell) or 'shuffled' (each tile's rows in a random order, fillers
+    included)."""
+    from fusion_sim_torch.ops.sorted_deposit import Tiling3D
+
+    shape = (16, 16, 32)
+    tiling = Tiling3D(tile=(8, 8, 8), block=64, margin=margin)
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(30, 200, 16)
+    counts[[0, 1, 2, 3]] = (0, 64, 20 * 64, 0)
+    corner = np.array([[(t // 8) * 8, (t // 4 % 2) * 8, (t % 4) * 8]
+                       for t in range(16)], np.float32)
+    pos = np.concatenate([corner[t] + 8 * rng.random((c, 3))
+                          for t, c in enumerate(counts)]).astype(np.float32)
+    n = -(-pos.shape[0] // 64) * 64
+    pos = np.concatenate([pos, corner[15] + 8 * rng.random(
+        (n - pos.shape[0], 3))])
+    vel = vscale * rng.standard_normal((n, 3))
+    pos, vel = (torch.tensor(x, dtype=torch.float32, device=cuda)
+                for x in (pos, vel))
+    tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
+        pos, shape, tiling, vel[:, 0], vel[:, 1], vel[:, 2],
+        derive_valid=True, cell_order=order != "tile")
+    vel_p = torch.stack([v0, v1, v2], -1)
+    if order == "shuffled":
+        key = tid.long() * 2 ** 32 + torch.randint(
+            0, 2 ** 31, tid.shape, device=cuda, generator=torch.Generator(
+                device=cuda).manual_seed(seed))
+        perm = torch.argsort(key)
+        pos_p, vel_p, valid = pos_p[perm], vel_p[perm], valid[perm]
+    seg = torch.bincount(tid.long(), minlength=17).tolist()
+    assert seg[0] == seg[3] == 0 and seg[1] == 64 and seg[2] >= 20 * 64
+    assert seg[16] > 0, "needs sentinel blocks"
+    return shape, tiling, pos_p.contiguous(), vel_p.contiguous(), valid, tid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["tile", "cell", "shuffled"])
+@pytest.mark.parametrize("margin,vscale", [(2, 0.3), (1, 6.0), (6, 0.3),
+                                           (7, 2.0)])
+def test_fused_es3d_substep_kernel_tile_edges(cuda, order, margin, vscale):
+    """The tile-owned kernel's edges: empty tiles, a tile of one block, a
+    tile of twenty, sentinel blocks (back as given, in_win False), rows by
+    tile, by cell and shuffled inside each tile (the warp-combined deposit
+    must not depend on the order), heavy spill at margin 1, and the largest
+    windows: margin 6 (21^3 cells, 148 KB of shared memory) and margin 7
+    (23^3, 195 KB, the largest B5 window of 8^3 tiles).  Positions,
+    velocities and in_win bit for bit; rho to 1e-5 of max|rho|."""
+    from fusion_sim_torch.ops import fused_pic3d
+
+    shape, tiling, pos_p, vel_p, valid, tid = _es3d_edge_layout(
+        cuda, margin, vscale, order)
+    e_grid = torch.tensor(np.random.default_rng(21).standard_normal(
+        (*shape, 3)), dtype=torch.float32, device=cuda)
+    w = torch.where(valid, 1.5, 0.0).to(torch.float32)
+    args = (e_grid, pos_p, vel_p, w, tid, shape, tiling, 0.25, 0.5, 0.4, 0.6)
+    got = fused_pic3d.fused_es3d_substep(*args)
+    plain = fused_pic3d.fused_es3d_substep_plain(*args)
+    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
+        assert torch.equal(got[i], plain[i]), name
+    scale = float(plain[2].abs().max())
+    assert float((got[2] - plain[2]).abs().max()) <= 1e-5 * scale
+    sent = tid == 16
+    assert torch.equal(got[0][sent], pos_p[sent])
+    assert torch.equal(got[1][sent], vel_p[sent])
+    assert not bool(got[3][sent].any())
+    if margin == 1:
+        assert int((~plain[3] & valid).sum()) > 100, "needs actual spill"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("margin,vscale,jitter,relativistic,c_light", [
     (2, 0.3, 0.0, False, 1.0), (2, 1.5, 0.0, True, 1.0),
@@ -401,6 +523,12 @@ def test_3d_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         fused_pic3d.fused_es3d_substep(table[..., :3].contiguous(), pos_p,
                                        vel_p, w, tid, shape, big, 0.1, 0.1,
+                                       0.1, 0.1)
+    # a refused B5 window: 23 x 23 x 31 cells need 262 KB
+    over = Tiling3D(tile=(8, 8, 16), block=128, margin=7)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_pic3d.fused_es3d_substep(table[..., :3].contiguous(), pos_p,
+                                       vel_p, w, tid, shape, over, 0.1, 0.1,
                                        0.1, 0.1)
     with pytest.raises(ValueError, match="shared memory"):
         fused_em3d.fused_em3d_substep(*args, shape, big, 0.1, 0.1,

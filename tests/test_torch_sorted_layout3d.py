@@ -88,6 +88,59 @@ def test_build_padded_layout_3d_matches_reference(with_valid):
             loc_t[a].numpy()[rows], np.asarray(locals_j[a]).reshape(-1)[rows])
 
 
+@pytest.mark.parametrize("with_valid,reserve", [(False, False),
+                                                (True, False), (True, True)])
+def test_build_padded_layout_3d_by_cell_matches_reference(with_valid,
+                                                          reserve):
+    """``cell_order=True`` (the ES 3D shell's layout): the reference's tile
+    ids, validity and padding exactly, each tile segment the same rows as a
+    set, and inside each segment the real rows in the order of their cell
+    inside the tile (z fastest; computed here with numpy), fillers last."""
+    pos, vel, valid = _particles(seed=1)
+    jt, tt = jx.Tiling3D(**TILE), tp.Tiling3D(**TILE)
+    kw_j = dict(valid=jnp.asarray(valid)) if with_valid else {}
+    kw_t = dict(valid=torch.tensor(valid)) if with_valid else {}
+    outj = jx.build_padded_layout(
+        jnp.asarray(pos), SHAPE, jt, *[jnp.asarray(vel[:, a])
+                                       for a in range(3)],
+        derive_valid=True, reserve=reserve, spread=reserve, **kw_j)
+    outt = tp.build_padded_layout(
+        torch.tensor(pos), SHAPE, tt, *[torch.tensor(vel[:, a])
+                                        for a in range(3)],
+        derive_valid=True, reserve=reserve, spread=reserve, cell_order=True,
+        **kw_t)
+    tid_j, tid_t = np.asarray(outj[0]), outt[0].numpy()
+    np.testing.assert_array_equal(tid_t, tid_j)
+    np.testing.assert_array_equal(outt[5].numpy(), np.asarray(outj[5]))
+    assert int(outt[6]) == int(outj[6])
+    assert outt[0].dtype == torch.int32
+    rows_j = np.column_stack([np.asarray(o) for o in outj[1:6]])
+    rows_t = np.column_stack([o.numpy() for o in outt[1:6]])
+    assert _segments(tid_t, rows_t) == _segments(tid_j, rows_j)
+    # the cell inside the tile, from the base cell clamped into the grid
+    base = np.clip(np.floor(outt[1].numpy()).astype(np.int64), 0,
+                   np.array(SHAPE) - 1)
+    tile = np.array(TILE["tile"])
+    local = base % tile
+    cell = (local[:, 0] * tile[1] + local[:, 1]) * tile[2] + local[:, 2]
+    real = outt[5].numpy()
+    np.testing.assert_array_equal(
+        tp.tile_cell_keys(outt[1], SHAPE, tt).numpy()[real],
+        (tid_t.astype(np.int64) * tile.prod() + cell)[real])
+    for t in np.unique(tid_t[tid_t < 8]):
+        seg = np.flatnonzero(tid_t == t)
+        r = real[seg]
+        assert not (r[1:] & ~r[:-1]).any(), "fillers after the real rows"
+        assert (np.diff(cell[seg][r]) >= 0).all(), f"tile {t} not by cell"
+    # without cell_order the layout is the tile sort as before
+    plain = tp.build_padded_layout(
+        torch.tensor(pos), SHAPE, tt, *[torch.tensor(vel[:, a])
+                                        for a in range(3)],
+        derive_valid=True, reserve=reserve, spread=reserve, **kw_t)
+    np.testing.assert_array_equal(plain[0].numpy(), tid_t)
+    assert not np.array_equal(plain[1].numpy(), outt[1].numpy())
+
+
 def test_tiling3d_validation():
     with pytest.raises(ValueError, match="margin"):
         tp.Tiling3D(tile=(8, 4, 8), margin=4)
