@@ -24,12 +24,15 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                and heavy-spill inputs (B6 also relativistic, and both
                forms of its field read: the staged window and, at margin
                7, the corners through L1), then small 3D ES and EM runs on
-               the card against the CPU across resorts; the B5 and B3 cases
-               of tests/test_torch_kernels_cuda.py in a process of their
-               own (B5: empty tiles, tiles of one block and of twenty,
-               sentinel blocks, rows by tile, by cell and shuffled inside
-               each tile, heavy spill, the largest windows and the
-               smallest refused one; B3: 1, 3, 6, 12 and 13 channels in
+               the card against the CPU across resorts; the B4, B5 and B3
+               cases of tests/test_torch_kernels_cuda.py in a process of
+               their own (B4: each of its forms by window, on tiles of ~20
+               blocks, the EM rungs' windows, rows by cell, windows read
+               through L1, heavy spill, the repair layout and the refused
+               window; B5: empty tiles, tiles of one block and
+               of twenty, sentinel blocks, rows by tile, by cell and
+               shuffled inside each tile, heavy spill, the largest windows
+               and the smallest refused one; B3: 1, 3, 6, 12 and 13 channels in
                both modes and the edges of its periodic wrap); X1
                (contraction_depth) at m = 96, p = 256, G = 4, S = 8 for
                both orders, both precisions and every K, and at the edges
@@ -61,8 +64,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 6. EM main path — ``SortedElectromagneticPIC(gather_backend='fused')`` at
                the EM rung's size (10,002,432 particles, 512^2, cell 0.5,
                dt 0.1, tile 32, margin 6, resort every 12, spill capacity
-               16384): one warm window, two timed windows; B4 launches,
-               drops, validity, finiteness and Gauss's law checked, B4
+               16384; the shell orders each tile's rows by cell): one warm
+               window, two timed windows; B4 launches, drops, validity,
+               finiteness and Gauss's law checked, B4
                timed against its plain version and its bound on the path's
                own inputs, one profiled window;
 6b. EM pallas — the same configuration at 1,048,576 particles with
@@ -104,8 +108,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                ``repair=True``, resort 1e9, ``gather_backend='fused'``: one
                warm and two timed windows of 12 steps; B4 launches, drops,
                validity, finiteness and Gauss's law checked, ``unplaced``
-               printed, steps/s beside phase 6's resort-12 figure, one
-               profiled window.
+               printed, steps/s beside phase 6's resort-12 figure, B4 held
+               bit for bit against its plain version and timed against its
+               bound on the rung's own inputs, one profiled window.
 
 The line before the last lists the kernels as JSON (B3 once a form: the
 pusher's nearest C = 12 and C = 1, the EM route's cic C = 6; X1 with its
@@ -589,25 +594,29 @@ def phase3_pusher(torch, pm, ps, sc, fpu, sg, Tiling2D, dev):
 
 
 def phase3_card_cases() -> None:
-    """The B5 and B3 cases of tests/test_torch_kernels_cuda.py on the card,
-    in a process of their own: B5 on empty tiles, tiles of one block and of
-    twenty, sentinel blocks, rows by tile, by cell and shuffled inside each
-    tile, heavy spill, the largest windows and the smallest refused one;
-    B3 with 1, 3, 6, 12 and 13 channels in both modes and at the edges of
-    its periodic wrap."""
+    """The B4, B5 and B3 cases of tests/test_torch_kernels_cuda.py on the
+    card, in a process of their own: B4 in each of its forms by window, on
+    tiles of ~20 blocks, the EM rungs' windows, rows by cell, windows read
+    through L1, heavy spill with span rows and the repair layout, and its
+    refused window; B5 on empty tiles, tiles of one block and of twenty, sentinel
+    blocks, rows by tile, by cell and shuffled inside each tile, heavy
+    spill, the largest windows and the smallest refused one; B3 with 1, 3,
+    6, 12 and 13 channels in both modes and at the edges of its periodic
+    wrap."""
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
          "-p", "no:cacheprovider", "tests/test_torch_kernels_cuda.py", "-k",
-         "es3d or gather2d or 3d_kernels_reject"],
+         "em2d or es3d or gather2d or 3d_kernels_reject"],
         cwd=HERE, capture_output=True, text=True, timeout=600)
     lines = out.stdout.strip().splitlines()
     if out.returncode != 0 or not lines or "passed" not in lines[-1] \
             or "skipped" in lines[-1] or "failed" in lines[-1]:
-        raise AssertionError("the B5/B3 card cases failed:\n"
+        raise AssertionError("the B4/B5/B3 card cases failed:\n"
                              + "\n".join(lines[-40:]) + out.stderr[-2000:])
-    log("3 kernels", f"B5 and B3 card cases (tests/test_torch_kernels_cuda"
-                     f".py): {lines[-1]} ({time.perf_counter() - t0:.1f} s)")
+    log("3 kernels", f"B4, B5 and B3 card cases (tests/test_torch_kernels_"
+                     f"cuda.py): {lines[-1]} ({time.perf_counter() - t0:.1f} "
+                     f"s)")
 
 
 def run_windows(torch, sim, windows: int, cadence: int):
@@ -1974,6 +1983,27 @@ def phase11_em_repair(torch, em, fe, Tiling2D, smi, kernel_modules,
                         f"dropped {st.spill_dropped}, unplaced "
                         f"{int(st.unplaced)}; Gauss residual {r0:.6g} -> "
                         f"{r1:.6g} over {st.step} steps")
+
+    # B4 against its plain version and its bound on the rung's own inputs
+    # (tile 16, margin 7, the repair layout with relocated rows)
+    from fusion_sim_torch.ops import fdtd
+    table = fdtd.center_fields(st.e, st.b, fdtd.E_OFFSETS_2D,
+                               fdtd.B_OFFSETS_2D)
+    args = em_substep_args(sim.config, sim.tiling, table, st)
+    _, report = compare_fused(
+        torch, "B4", fe.fused_em2d_substep(*args),
+        fe.fused_em2d_substep_plain(*args), args[3], "J")
+    k_ms = median_ms(torch, lambda: fe.fused_em2d_substep(*args))
+    p_ms = median_ms(torch, lambda: fe.fused_em2d_substep_plain(*args),
+                     reps=3, warm=1)
+    b_ms, b_by, b_bytes = em_bound_ms(rows, n, sim.config.grid_shape,
+                                      sim.tiling.block)
+    log("11 EM repair", f"em2d_substep on the repair rung's inputs ({rows} "
+                        f"rows): {report}; kernel {k_ms:.4f} ms "
+                        f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s "
+                        f"effective), plain {p_ms:.4f} ms, bound "
+                        f"{b_ms:.4f} ms ({b_by})")
+    del args, table
     profile_window(torch, "11 EM repair", f"{steps} steps",
                    lambda: sim.step(steps))
 

@@ -2,8 +2,8 @@
 with the main paths of both.
 
     python -m fusion_sim_torch.examples.kernel_pair --other DIR \\
-        [--kernels b5,b3,b6,x1] [--ablate] [--es3d-path] [--em3d-path] \\
-        [--pusher-path] [--em-pallas-path]
+        [--kernels b4,b5,b3,b6,x1] [--ablate] [--em2d-path] [--es3d-path] \\
+        [--em3d-path] [--pusher-path] [--em-pallas-path] [--resort-path]
 
 ``DIR`` holds another commit's ``fusion_sim_torch/`` and ``chip_smoke.py``:
 for example the parent commit, unpacked with ``git archive <commit>
@@ -16,6 +16,17 @@ kernel; both checkouts' kernels are launched alike, through their C
 interface (which both keep) into outputs allocated once, so that the
 wrapper's host work is in neither time:
 
+* B4 (``em2d_substep``) on the inputs of both EM 2D rungs: the resort-12
+  rung (``chip_smoke.py`` phase 6: 10,002,432 particles on 512^2,
+  ``Tiling2D(32, 32, 1024, margin=6)``) 6 steps into a window and the
+  repair rung (phase 11: ``Tiling2D(16, 16, 1024, margin=7)``,
+  ``repair=True``) after its warm window of 12 steps, E|B centered from
+  the state; each rung with its layout built by tile (rows in no order
+  inside a tile) and by cell inside each tile, as a shell that built and
+  resorted by cell would hold it; this checkout's output held against
+  the plain version bit for bit on positions, velocities and in_win; and
+  the 2D resort (``build_padded_layout``) of the resort-12 rung by tile
+  and by cell;
 * B5 (``es3d_substep``): the ES 3D main path (29,997,056 particles on
   128^3, ``Tiling3D((8, 8, 8), 512, margin=2)``, ``chip_smoke.py``'s
   configuration) 3 steps into a window, E solved from its rho; both
@@ -34,11 +45,18 @@ wrapper's host work is in neither time:
   version bit for bit, and this checkout's B6 on the rows ordered by cell;
 * X1 (``contraction_depth``) over the experiment's default sweep (S 305,
   G 32, m 96, p 1024; both orders, both precisions, K 24 .. 128);
-* ``--ablate``: B5 and B6 of both checkouts rebuilt with their corner
-  reads replaced by constants ("no gather") and with their deposit
-  switched off ("no deposit"), and this checkout's B3 with its grid reads
-  replaced by zeros ("no grid read"), timed on the same inputs: what each
-  part costs;
+* ``--ablate``: B4, B5 and B6 of both checkouts rebuilt with their
+  corner reads replaced by constants ("no gather") and with their deposit
+  switched off ("no deposit"), B4 of both also with its J flush switched
+  off ("no flush"), and this checkout's B3 with its grid reads replaced by
+  zeros ("no grid read"), timed on the same inputs: what each part costs;
+  and this checkout's B4 rebuilt with 256, 512 and 1024 threads a CTA
+  whatever the window, without the in-cell rows' shared adds ("no shared
+  adds") and with each row a group of its own ("no combine"):
+  ``B4_VARIANTS``;
+* ``--em2d-path``: ``chip_smoke.py``'s phases 6 (the EM 2D main path) and
+  11 (its repair rung) of each checkout in its own process, other, this,
+  this, other: steps/s and B4 on each rung's own inputs;
 * ``--es3d-path``, ``--em3d-path``, ``--pusher-path``,
   ``--em-pallas-path``: ``chip_smoke.py``'s phase 7 (ES 3D), 8 (EM 3D),
   5b (the pallas pusher) or 6b (the EM pallas route) of each checkout in
@@ -67,6 +85,7 @@ import torch
 
 from ..ops import _build
 from ..ops import contraction_depth as cd
+from ..ops import fused_em as fe
 from ..ops import fused_em3d as fe3
 from ..ops import fused_pic3d as f3
 from ..ops import sorted_gather as sg
@@ -74,11 +93,33 @@ from ..ops.sorted_deposit import Tiling3D, build_padded_layout
 
 ROOT = _build.PACKAGE.parent
 DEPTHS = (24, 32, 48, 96, 128)
-KERNELS = ("b5", "b3", "b6", "x1")
+KERNELS = ("b4", "b5", "b3", "b6", "x1")
 # source edits for --ablate, by source: (name, [(text, replacement), ...]);
 # the edits cover this checkout's source and its parent's, and each
 # ablation must change the source it is applied to
 ABLATIONS = {
+    "em2d_substep": (
+        ("no gather", [
+            ("return *q;", "return make_float2(1e-3f, 2e-3f);"),
+            ("return __ldg(q);", "return make_float2(1e-3f, 2e-3f);"),
+            ("const float2 w00 = __ldg(c00 + c), w10 = __ldg(c10 + c);",
+             "const float2 w00 = make_float2(1e-3f, 2e-3f), w10 = w00;"),
+            ("const float2 w01 = __ldg(c01 + c), w11 = __ldg(c11 + c);",
+             "const float2 w01 = w00, w11 = w00;")]),
+        ("no deposit", [
+            ("const bool dep = inw && cur[5] != 0.0f;",
+             "const bool dep = inw && cur[5] != 0.0f && p.n_tiles < 0;"),
+            ("if (inw && valid[row]) {",
+             "if (inw && valid[row] && p.n_tiles < 0) {")]),
+        ("no flush", [
+            ("if (val != 0.0f) add_to_grid(j_grid, k, val, wz, otr, otz, nr, "
+             "nz);",
+             "if (val != 0.0f && p.n_tiles < 0) "
+             "add_to_grid(j_grid, k, val, wz, otr, otz, nr, nz);"),
+            ("flush_window(j_s, j_grid, wn3, wz, otr, otz, nr, nz);",
+             "if (p.n_tiles < 0) "
+             "flush_window(j_s, j_grid, wn3, wz, otr, otz, nr, nz);")]),
+    ),
     "em3d_substep": (
         ("no gather", [
             ("v[a][bb][d] = __ldg(q[a][bb][d] + c);",
@@ -111,6 +152,26 @@ ABLATIONS = {
             ("__ldg(", "ldg0(")]),
     ),
 }
+# source edits of this checkout's B4 for --ablate: its threads a CTA,
+# whatever the window, and the parts of its combined in-cell deposit
+B4_VARIANTS = (
+    ("256 threads a CTA", [
+        ("if (cta_threads(tile_r + 2 * margin + 1, tile_z + 2 * margin + 1) "
+         "== 256) {", "if (true) {")]),
+    ("512 threads a CTA", [
+        ("if (cta_threads(tile_r + 2 * margin + 1, tile_z + 2 * margin + 1) "
+         "== 256) {", "if (false) {")]),
+    ("1024 threads a CTA", [
+        ("if (cta_threads(tile_r + 2 * margin + 1, tile_z + 2 * margin + 1) "
+         "== 256) {", "if (false) {"),
+        ("return launch_form<512>(", "return launch_form<1024>(")]),
+    ("no shared adds", [
+        ("if (in_cell && lane == __ffs(peers) - 1) {",
+         "if (in_cell && lane == __ffs(peers) - 1 && p.n_tiles < 0) {")]),
+    ("no combine", [
+        ("const unsigned peers = __match_any_sync(kFull, key);",
+         "const unsigned peers = 1u << lane;")]),
+)
 # chip_smoke.py's phase of a path, run in the checkout's own directory
 PATH_RUN = r'''
 import json, subprocess, sys
@@ -121,6 +182,7 @@ from fusion_sim_torch import scenarios as sc
 from fusion_sim_torch.models import electromagnetic as em
 from fusion_sim_torch.models import electrostatic as es
 from fusion_sim_torch.models import pusher as pm
+from fusion_sim_torch.ops import fused_em as fe
 from fusion_sim_torch.ops import fused_em3d as fe3
 from fusion_sim_torch.ops import fused_pic3d as f3
 from fusion_sim_torch.ops import sorted_gather as sg
@@ -129,7 +191,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True).stdout.strip()
-mods = (fe3, f3, sg)
+mods = (fe, fe3, f3, sg)
 rec = {call}
 print("kernel record", json.dumps(rec), flush=True)
 '''
@@ -172,6 +234,9 @@ def resorts():
     return out
 '''
 PATHS = {
+    "em2d": "(lambda r6: [r6, cs.phase11_em_repair(torch, em, fe, "
+            "Tiling2D, smi, mods, r6[1])])(cs.phase6_em_main(torch, em, fe, "
+            "Tiling2D, smi, mods))",
     "es3d": "cs.phase7_es3d_main(torch, es, f3, Tiling3D, smi, mods)",
     "em3d": "cs.phase8_em3d_main(torch, em, fe3, Tiling3D, smi, mods)",
     "pusher": "cs.phase5b_pallas(torch, pm, sc, sg, Tiling2D, smi, mods)",
@@ -230,11 +295,14 @@ def build(sources: dict[str, Path], out_dir: Path) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def ablated_sources(src: Path, out_dir: Path, tag: str) -> dict[str, Path]:
+def ablated_sources(src: Path, out_dir: Path, tag: str,
+                    variants=None) -> dict[str, Path]:
+    """``src`` with each of ``variants`` (ABLATIONS of its stem by
+    default) applied, by name."""
     out_dir.mkdir(parents=True, exist_ok=True)
     text = src.read_text()
     out = {}
-    for name, edits in ABLATIONS[src.stem]:
+    for name, edits in variants or ABLATIONS[src.stem]:
         edited = text
         for old, new in edits:
             edited = edited.replace(old, new)
@@ -391,6 +459,131 @@ def b6_pairs(other, ablations) -> None:
         f"by cell inside each tile {cell_ms:.4f} ms")
     del args, tile, cell
     torch.cuda.empty_cache()
+
+
+# -- B4 -------------------------------------------------------------------------
+
+def relayout(sim, cell_order: bool) -> None:
+    """A 2D EM model's layout rebuilt from its state as its resort builds
+    it, by cell inside each tile, or by tile from the rows in a random
+    order (so each tile's rows come in no order, as the parent's shell
+    holds them)."""
+    s = sim.state
+    n_state = s.position.shape[0]
+    if not cell_order:
+        perm = torch.randperm(n_state, device=s.position.device,
+                              generator=torch.Generator(
+                                  device=s.position.device).manual_seed(3))
+        s = s._replace(position=s.position[perm], velocity=s.velocity[perm],
+                       valid=s.valid[perm])
+    tid, pos_p, v0, v1, v2, valid_p, _ = build_padded_layout(
+        s.position, sim.config.grid_shape, sim.tiling,
+        *s.velocity.unbind(-1), valid=s.valid, reserve=sim.repair,
+        spread=sim.repair, derive_valid=True, cell_order=cell_order)
+    sim.state = s._replace(
+        position=pos_p[:n_state].contiguous(),
+        velocity=torch.stack([v0, v1, v2], -1)[:n_state].contiguous(),
+        tile_id=tid[:n_state], valid=valid_p[:n_state])
+    if sim.repair:
+        sim._rebuild_free_list()
+
+
+def em2d_inputs(cs, rung: str, cell_order: bool):
+    """B4's arguments on an EM 2D rung's own state, and the model:
+    'resort-12' (phase 6) 6 steps into a window, 'repair' (phase 11)
+    after its warm window of 12 steps; the layout built by tile or by
+    cell."""
+    from ..models import electromagnetic as em
+    from ..ops import fdtd
+    from ..ops.sorted_deposit import Tiling2D
+
+    n = 10_002_432
+    rng = np.random.default_rng(0)
+    pos = (rng.random((n, 2)) * 512).astype(np.float32)
+    vel = (0.05 * rng.standard_normal((n, 3))).astype(np.float32)
+    if rung == "repair":
+        sim = em.SortedElectromagneticPIC(
+            cs.em_config(em), pos, vel,
+            tiling=Tiling2D(16, 16, 1024, margin=7), resort_every=10 ** 9,
+            check_spill=False, gather_backend="fused", repair=True)
+    else:
+        sim = em.SortedElectromagneticPIC(
+            cs.em_config(em), pos, vel, tiling=Tiling2D(**cs.EM_TILING),
+            resort_every=12, check_spill=False, gather_backend="fused",
+            spill_capacity=16384)
+    del pos, vel
+    relayout(sim, cell_order)
+    sim.step(12 if rung == "repair" else 6)
+    st = sim.state
+    table = fdtd.center_fields(st.e, st.b, fdtd.E_OFFSETS_2D,
+                               fdtd.B_OFFSETS_2D)
+    return cs.em_substep_args(sim.config, sim.tiling, table, st), sim
+
+
+def em2d_launcher(lib, args):
+    """A closure launching ``lib``'s em2d_substep on ``args`` (the C
+    interface every checkout's B4 shares)."""
+    table, pos, vel, valid, tid, shape, tiling = args[:7]
+    nr, nz, ntz, n_tiles, k = fe._constants(shape, tiling, pos, *args[7:11],
+                                            1.0)
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.em2d_substep.argtypes = [p_] * 9 + [i_] * 10 + [f_] * 9 + [p_]
+    lib.em2d_substep.restype = i_
+    pos_out, vel_out = torch.empty_like(pos), torch.empty_like(vel)
+    j = torch.zeros((nr, nz, 3), device=pos.device)
+    in_win = torch.empty(pos.shape[0], dtype=torch.bool, device=pos.device)
+
+    def run():
+        j.zero_()
+        a = (table.data_ptr(), pos.data_ptr(), vel.data_ptr(),
+             valid.data_ptr(), tid.data_ptr(), pos_out.data_ptr(),
+             vel_out.data_ptr(), j.data_ptr(), in_win.data_ptr(),
+             pos.shape[0], tiling.block, nr, nz, ntz, n_tiles,
+             tiling.tile_r, tiling.tile_z, tiling.margin, 0,
+             k["qm_half_dt"], k["dt"], k["inv_dx"], k["inv_dz"],
+             k["coef_x"], k["coef_z"], k["inv_vol"], k["inv_c2"],
+             k["charge"])
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.em2d_substep(*a, stream)
+        if err:
+            raise RuntimeError(f"em2d_substep launch failed: {err}")
+    return run
+
+
+def b4_pairs(other, ablations, cs) -> None:
+    this = fe._library()
+    for rung in ("resort-12", "repair"):
+        for cell_order in (False, True):
+            label = f"{rung}, rows {'by cell' if cell_order else 'by tile'}"
+            args, sim = em2d_inputs(cs, rung, cell_order)
+            err = check_fused(f"B4 ({label})", fe.fused_em2d_substep(*args),
+                              fe.fused_em2d_substep_plain(*args))
+            rows = args[1].shape[0]
+            b_ms = cs.em_bound_ms(rows, sim.n_real, args[5],
+                                  args[6].block)[0]
+            o_ms, t_ms = in_turns(em2d_launcher(other, args),
+                                  em2d_launcher(this, args))
+            log(f"B4 ({label}, {rows} rows): other {o_ms:.4f} ms, this "
+                f"{t_ms:.4f} ms ({o_ms / t_ms:.2f}x), bound {b_ms:.4f} ms "
+                f"({100 * b_ms / o_ms:.1f}% / {100 * b_ms / t_ms:.1f}%); "
+                f"this vs plain: positions, velocities and in_win equal, J "
+                f"within {err:.2g} of max|J|")
+            for name, lib in ablations.items():
+                log(f"B4 {label}, {name}: "
+                    f"{median_ms(em2d_launcher(lib, args)):.4f} ms")
+            if rung == "resort-12" and not cell_order:
+                st, cfg, tiling = sim.state, sim.config, sim.tiling
+
+                def resort(order):
+                    return lambda: build_padded_layout(
+                        st.position, cfg.grid_shape, tiling,
+                        *st.velocity.unbind(-1), valid=st.valid,
+                        derive_valid=True, cell_order=order)
+                tile_ms, cell_ms = in_turns(resort(False), resort(True))
+                log(f"2D resort ({rows} rows): by tile {tile_ms:.4f} ms, by "
+                    f"cell {cell_ms:.4f} ms")
+            del args, sim
+            torch.cuda.empty_cache()
 
 
 # -- B5 -------------------------------------------------------------------------
@@ -607,14 +800,18 @@ def main(argv=None) -> None:
                          text=True, check=True).stdout.strip()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.build_all()
-    stems = {"b5": "es3d_substep", "b3": "gather2d", "b6": "em3d_substep",
-             "x1": "contraction_depth"}
+    stems = {"b4": "em2d_substep", "b5": "es3d_substep", "b3": "gather2d",
+             "b6": "em3d_substep", "x1": "contraction_depth"}
     sources = {f"other_{k}": other_csrc / f"{stems[k]}.cu" for k in kernels}
     ablate_dir = _build.BUILD / "ablate"
-    for k in ("b5", "b3", "b6"):
+    for k in ("b4", "b5", "b3", "b6"):
         if ns.ablate and k in kernels:
             sources.update(ablated_sources(
                 _build.CSRC / f"{stems[k]}.cu", ablate_dir, "this"))
+            if k == "b4":
+                sources.update(ablated_sources(
+                    _build.CSRC / "em2d_substep.cu", ablate_dir, "this",
+                    B4_VARIANTS))
             if k != "b3":
                 sources.update(ablated_sources(
                     other_csrc / f"{stems[k]}.cu", ablate_dir, "other"))
@@ -625,7 +822,9 @@ def main(argv=None) -> None:
                 if name.startswith(stem + " ")}
     cs = smoke()
     for k in kernels:
-        if k == "b5":
+        if k == "b4":
+            b4_pairs(libs["other_b4"], ablations("em2d_substep"), cs)
+        elif k == "b5":
             b5_pairs(libs["other_b5"], ablations("es3d_substep"), cs)
         elif k == "b3":
             b3_pairs(libs["other_b3"], ablations("gather2d"), cs)

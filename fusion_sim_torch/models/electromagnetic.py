@@ -365,7 +365,11 @@ class SortedElectromagneticPIC:
     spilled rows into dead slots of their new tile each step, with
     ``repair_free_slots``, ``repair_eager`` and ``eager_capacity`` as in
     ``SortedElectrostaticPIC``; the resort then runs at the start of each
-    ``resort_every`` window or when the free stacks drain.
+    ``resort_every`` window or when the free stacks drain.  With 'fused' in
+    2D the layout orders each tile's rows by cell
+    (``build_padded_layout(cell_order=True)``), at build and at every
+    resort, so that kernel B4 sums a warp's rows of one cell before it adds
+    them to its window.
     """
 
     def __init__(self, config: EMConfig, position, velocity,
@@ -431,6 +435,7 @@ class SortedElectromagneticPIC:
         self._n_tiles = math.prod(self.tiling.n_tiles(config.grid_shape))
         self._step_once = (self._step_fused if gather_backend == "fused"
                            else self._step_split)
+        self._cell_order = gather_backend == "fused" and config.n_dim == 2
         if _state is not None:                              # from_state
             self.state = sorted_em_state_from_numpy(_state, dev)
             self.n_real = int(self.state.valid.sum())
@@ -448,7 +453,8 @@ class SortedElectromagneticPIC:
                               device=dev)
         tid, pos_p, v0, v1, v2, valid_p, _ = build_padded_layout(
             pos, shape, self.tiling, vel[:, 0], vel[:, 1], vel[:, 2],
-            reserve=repair, spread=repair, derive_valid=True)
+            reserve=repair, spread=repair, derive_valid=True,
+            cell_order=self._cell_order)
         self.state = SortedEMState(
             position=pos_p, velocity=torch.stack([v0, v1, v2], dim=-1),
             tile_id=tid, valid=valid_p, e=_fields_from(e, shape, dev),
@@ -642,7 +648,7 @@ class SortedElectromagneticPIC:
             s.position, self.config.grid_shape, self.tiling,
             s.velocity[:, 0], s.velocity[:, 1], s.velocity[:, 2],
             valid=s.valid, reserve=self.repair, spread=self.repair,
-            derive_valid=True)
+            derive_valid=True, cell_order=self._cell_order)
         self.state = s._replace(
             position=pos_p[:n_state],
             velocity=torch.stack([v0[:n_state], v1[:n_state], v2[:n_state]],

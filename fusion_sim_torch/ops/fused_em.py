@@ -37,6 +37,17 @@ On a CUDA tensor ``fused_em2d_substep`` launches the hand-written kernel
 tensor it runs ``fused_em2d_substep_plain``, the same function in plain
 PyTorch, which the tests hold against the JAX kernel and the card holds
 the kernel against.
+
+The kernel's design: one CTA owns one tile, which needs the layout's
+blocks sorted by tile id as ``build_padded_layout`` and the repair keep
+them; it stages its tile's field window in shared memory beside its J
+window and flushes J once onto the grid; a row that stays in its cell
+deposits a fixed 8-value stencil, summed over a warp's rows of one cell
+before the shared adds; other charged rows go through a per-warp queue to
+the general span loop.  A window whose fields do not fit in shared memory
+beside J reads its corners through L1; one whose J does not fit either
+(``em2d_substep_smem`` reports no form within the shared memory a block
+can use) is refused with ValueError.
 """
 
 from __future__ import annotations
@@ -207,6 +218,8 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.em2d_substep.argtypes = [p] * 9 + [i] * 10 + [f] * 9 + [p]
         lib.em2d_substep.restype = i
+        lib.em2d_substep_smem.argtypes = [i] * 2
+        lib.em2d_substep_smem.restype = ctypes.c_longlong
         lib.em2d_error_string.argtypes = [i]
         lib.em2d_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -227,11 +240,17 @@ def _launch(table, position, velocity, valid, tile_id, shape, tiling,
     _check("tile_id", tile_id, torch.int32, (n,), dev)
     if n >= 2 ** 31 // 3 or nr * nz >= 2 ** 31 // 6:
         raise ValueError("the kernel indexes values with 32-bit ints")
+    lib = _library()
+    # the current window (and the field window beside it where it fits)
+    if lib.em2d_substep_smem(*tiling.window()) < 0:
+        raise ValueError(
+            f"a {tiling.window()} window's current does not fit in the "
+            f"shared memory a block can use: take smaller tiles or a "
+            f"smaller margin")
     pos_out = torch.empty_like(position)
     vel_out = torch.empty_like(velocity)
     j = torch.zeros((nr, nz, 3), dtype=f32, device=dev)
     in_win = torch.empty((n,), dtype=torch.bool, device=dev)
-    lib = _library()
     err = lib.em2d_substep(
         table.data_ptr(), position.data_ptr(), velocity.data_ptr(),
         valid.data_ptr(), tile_id.data_ptr(), pos_out.data_ptr(),

@@ -223,8 +223,9 @@ def _em_case(cuda, vscale, shape=(64, 128), n=8192, seed=6):
 def test_fused_em2d_substep_kernel_matches_plain(cuda, vscale, relativistic,
                                                  c_light):
     """Built with -fmad=false and the plain version's operation order:
-    positions, velocities and in_win bit for bit; J differs only by the
-    order of its atomic sums, 1e-5 of max|J|."""
+    positions, velocities and in_win bit for bit; J differs by the order of
+    its atomic sums and the rounding of the in-cell rows' closed form, 1e-5
+    of max|J|."""
     from fusion_sim_torch.ops import fused_em
 
     args = _em_case(cuda, vscale)
@@ -256,6 +257,133 @@ def test_fused_em2d_substep_kernel_rejects_bad_inputs(cuda):
         broken[i] = bad
         with pytest.raises(exc, match=name):
             fused_em.fused_em2d_substep(*broken)
+
+
+def _em2d_layout(cuda, case):
+    """The tile-owned B4's edges, on a 64 x 128 grid unless said: (table,
+    position, velocity, valid, tile_id, shape, tiling, relativistic,
+    c_light).  Every tile's window wraps at the periodic edge, and the
+    layouts end in sentinel blocks (the repair layout spreads them)."""
+    from fusion_sim_torch.models import electromagnetic as em
+
+    shape, n, vscale, jitter, rel, c = (64, 128), 40960, 0.1, 0.0, False, 1.0
+    cell_order = False
+    if case == "tile 32 margin 6":   # ~20 blocks a tile
+        tiling = Tiling2D(tile_r=32, tile_z=32, block=256, margin=6)
+    elif case == "tile 16 margin 7":
+        tiling = Tiling2D(tile_r=16, tile_z=16, block=128, margin=7)
+    elif case == "by cell":
+        tiling = Tiling2D(tile_r=32, tile_z=32, block=256, margin=6)
+        cell_order = True
+    elif case == "L1 form":          # 77^2 cells: 512 threads, L1
+        shape = (128, 128)
+        tiling = Tiling2D(tile_r=64, tile_z=64, block=256, margin=6)
+    elif case == "L1 form 256":      # 91^2 cells: 256 threads, L1
+        shape = (128, 128)
+        tiling = Tiling2D(tile_r=64, tile_z=64, block=256, margin=13)
+    elif case == "heavy spill":      # span rows and frozen rows
+        tiling = Tiling2D(tile_r=16, tile_z=16, block=128, margin=2)
+        vscale, jitter = 12.0, 1.0
+    elif case == "heavy spill relativistic":
+        tiling = Tiling2D(tile_r=16, tile_z=16, block=128, margin=2)
+        vscale, jitter, rel, c = 25.0, 1.0, True, 60.0
+    else:
+        assert case == "repair"
+        tiling = Tiling2D(tile_r=16, tile_z=16, block=128, margin=2)
+    rng = np.random.default_rng(22)
+    pos = (rng.random((n, 2)) * np.array(shape)).astype(np.float32)
+    vel = (vscale * rng.standard_normal((n, 3))).astype(np.float32)
+    table = torch.tensor(rng.standard_normal((*shape, 6)),
+                         dtype=torch.float32, device=cuda)
+    if case == "repair":
+        # the spread and reserved layout after 4 steps in which rows at
+        # ~0.6 cells a step left their tiles and were relocated into
+        # filler slots of their new tiles
+        cfg = em.EMConfig(grid_shape=shape, cell_size=(0.5, 0.5), dt=0.1,
+                          charge=-0.01, mass=0.01, field_gather="centered")
+        sim = em.SortedElectromagneticPIC(
+            cfg, pos, 3.0 * vel / vscale, tiling=tiling,
+            resort_every=10 ** 9, check_spill=False,
+            gather_backend="fused", repair=True, device=cuda)
+        sim.step(4)
+        st = sim.state
+        assert st.spill > 100, "needs relocated rows"
+        v = st.valid.reshape(-1, tiling.block)
+        assert bool((v[:, 1:] & ~v[:, :-1]).any()), "needs holes"
+        return (table, st.position.contiguous(), st.velocity.contiguous(),
+                st.valid, st.tile_id, shape, tiling, rel, c)
+    pos, vel = (torch.tensor(x, device=cuda) for x in (pos, vel))
+    tid, pos_p, v0, v1, v2, valid, _ = build_padded_layout(
+        pos, shape, tiling, vel[:, 0], vel[:, 1], vel[:, 2],
+        derive_valid=True, cell_order=cell_order)
+    if jitter:
+        pos_p = torch.remainder(
+            pos_p + jitter * torch.tensor(
+                rng.standard_normal(tuple(pos_p.shape)), dtype=torch.float32,
+                device=cuda),
+            torch.tensor(shape, dtype=torch.float32, device=cuda))
+    n_tiles = int(np.prod(tiling.n_tiles(shape)))
+    assert int((tid == n_tiles).sum()) > 0, "needs sentinel blocks"
+    return (table, pos_p.contiguous(),
+            torch.stack([v0, v1, v2], -1).contiguous(), valid, tid, shape,
+            tiling, rel, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "tile 32 margin 6", "tile 16 margin 7", "by cell", "L1 form",
+    "L1 form 256", "heavy spill", "heavy spill relativistic", "repair"])
+def test_fused_em2d_substep_kernel_tile_edges(cuda, case):
+    """The tile-owned kernel on its edges, each of its four forms reached
+    by the window: tiles of ~20 blocks split among the warps, the EM rungs'
+    windows (tile 32 margin 6: 512 threads a CTA, staged; tile 16 margin
+    7: 256, staged), rows by cell, windows whose fields do not fit beside J
+    (77^2: 512 threads, corners through L1; 91^2: 256, through L1), heavy
+    spill with span rows (also relativistic), and the repair layout with
+    relocated rows and holes.  Positions, velocities and in_win bit for
+    bit, J to 1e-5 of max|J|; sentinel blocks back as given with in_win
+    False."""
+    from fusion_sim_torch.ops import fused_em
+
+    table, pos_p, vel_p, valid, tid, shape, tiling, rel, c = _em2d_layout(
+        cuda, case)
+    args = (table, pos_p, vel_p, valid, tid, shape, tiling, 0.1, 0.1,
+            (0.5, 0.8), -0.01)
+    nr, nz, ntz, n_tiles, k = fused_em._constants(
+        shape, tiling, pos_p, 0.1, 0.1, (0.5, 0.8), -0.01, c)
+    got = fused_em._launch(*args[:7], rel, nr, nz, ntz, n_tiles, k)
+    plain = fused_em.fused_em2d_substep_plain(*args, c_light=c,
+                                              relativistic=rel)
+    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
+        assert torch.equal(got[i], plain[i]), name
+    scale = float(plain[2].abs().max())
+    assert float((got[2] - plain[2]).abs().max()) <= 1e-5 * scale
+    sent = tid == n_tiles
+    assert torch.equal(got[0][sent], pos_p[sent])
+    assert torch.equal(got[1][sent], vel_p[sent])
+    assert not bool(got[3][sent].any())
+    if case.startswith("heavy"):
+        assert int((~plain[3] & valid).sum()) > 100, "needs actual spill"
+        moved = (torch.floor(got[0]) != torch.floor(pos_p)).any(-1)
+        assert int((moved & got[3] & valid).sum()) > 100, "needs span rows"
+
+
+@pytest.mark.cuda
+def test_fused_em2d_substep_kernel_refuses_a_window_over_227_kb(cuda):
+    """141^2 cells: J and the queues alone pass the 227 KB a block can
+    use."""
+    from fusion_sim_torch.ops import fused_em
+
+    tiling = Tiling2D(tile_r=128, tile_z=128, block=128, margin=6)
+    shape, n = (128, 256), 256
+    args = (torch.zeros((*shape, 6), device=cuda),
+            torch.zeros((n, 2), device=cuda),
+            torch.zeros((n, 3), device=cuda),
+            torch.ones((n,), dtype=torch.bool, device=cuda),
+            torch.zeros((n,), dtype=torch.int32, device=cuda), shape, tiling,
+            0.1, 0.1, (0.5, 0.5), -0.01)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_em.fused_em2d_substep(*args)
 
 
 @pytest.mark.cuda
