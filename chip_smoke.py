@@ -42,6 +42,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                3D ``repair=True, repair_eager=1``, EM 2D fused with repair,
                EM 3D fused with repair and eager 1, the fused pusher with
                repair, and the analytic fast path on the same uniforms;
+               ``spindle_cusp_field`` (n_power 2, 100 x 200) and
+               ``weighted_jacobi`` (1024 x 1024) on the card against the
+               CPU;
 4. ES main path — ``SortedElectrostaticPIC(backend='pallas')`` at the
                headline size (9,999,360 particles, 512^2, tile 32, margin
                10, resort every 20): one warm window, two timed windows;
@@ -110,7 +113,21 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                validity, finiteness and Gauss's law checked, ``unplaced``
                printed, steps/s beside phase 6's resort-12 figure, B4 held
                bit for bit against its plain version and timed against its
-               bound on the rung's own inputs, one profiled window.
+               bound on the rung's own inputs, one profiled window;
+12. viewer   — the reference app's live mode: the spindle BEM at n_power
+               3 on 400 x 800 timed (matrix, solve, grid field) and its
+               normal-field cancellation checked; then
+               ``fusion_sim_torch.viewer.server`` served in this process
+               on 127.0.0.1:0 and driven over HTTP: the default scenario at
+               16,810,000 protons, the spindle field (n_power 3), the fast
+               path refused, the sorted path (``backend='fused'``, resort
+               10, spill 16384), ``/api/step`` n=20 (steps/s, two B2
+               launches a step), ``/api/start`` for ~3.5 s and
+               ``/api/stop`` (fps > 0 while running, 0 after; B2 launches
+               two a step), no row dropped, ``/frame.png`` decoded to 800
+               x 400 RGB, finite diagnostics, the ms of a render + PNG
+               encode and which encoder ran; then ES ``two_stream`` and EM
+               ``weibel`` at their factory sizes, 5 steps and a frame each.
 
 The line before the last lists the kernels as JSON (B3 once a form: the
 pusher's nearest C = 12 and C = 1, the EM route's cic C = 6; X1 with its
@@ -1767,6 +1784,316 @@ def phase3_slice(torch, es, em, pm, ps, an, sc, Tiling2D, Tiling3D, dev):
                      f"(tol 1e-4)")
 
 
+# -- phase 3, this slice's modules: the spindle BEM and weighted Jacobi ----------
+
+def phase3_a1(torch, sp, solvers, dev):
+    """The spindle-cusp field at n_power 2 on a 100 x 200 grid and weighted
+    Jacobi on a diagonally dominant 1024 x 1024 system, each on the card
+    against the same call on the CPU."""
+    # the element fields are f32 closed forms whose self-element entries
+    # (point and loop ~1e-4 m apart) amplify an ulp through log(1 - m);
+    # the direct solve (condition number 92) carries that into the
+    # currents, measured at ~5e-6 of max|x| between two CPU roundings of
+    # the same function: the field is held at 1e-4 of max|B|
+    kw = dict(radius=1.0, height=2.0, nr=100, nz=200, coil_current=1e6,
+              n_power=2)
+    t0 = time.perf_counter()
+    card = sp.spindle_cusp_field(**kw, device=dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    cpu = sp.spindle_cusp_field(**kw, device="cpu")
+    g_card = sp.build_geometry(1.0, 2.0, 64, device=dev)
+    g_cpu = sp.build_geometry(1.0, 2.0, 64, device="cpu")
+    a_card = sp._bem_matrix(g_card, 2.0).cpu()
+    a_cpu = sp._bem_matrix(g_cpu, 2.0)
+    a_scale = float(a_cpu.abs().max())
+    a_err = (a_card - a_cpu).abs() / a_scale
+    diag = torch.eye(64, dtype=torch.bool)
+    scale = float(cpu.abs().max())
+    err = float((card.cpu() - cpu).abs().max()) / scale
+    if tuple(card.shape) != (100, 200, 3) or not err < 1e-4:
+        raise AssertionError(f"spindle_cusp_field card vs CPU: "
+                             f"{tuple(card.shape)}, {err:.3g} of max|B| "
+                             f"(tol 1e-4)")
+    log("3 kernels", f"spindle_cusp_field (n_power 2, 64 loops, 100 x 200, "
+                     f"{t_card * 1e3:.1f} ms on the card): card vs CPU "
+                     f"{err:.3g} of max|B| (tol 1e-4); BEM matrix off the "
+                     f"diagonal {float(a_err[~diag].max()):.3g}, on it "
+                     f"{float(a_err[diag].max()):.3g} of max|A|")
+
+    # weighted Jacobi: 12 checks to tolerance 3e-5 on the CPU; the last two
+    # diffs sit 8 and 32 ulp-steps of diff (2n ulp(max|x|) / (|sum x1| +
+    # |sum x2|)) from the tolerance, so sums in another order keep the stop
+    rng = np.random.default_rng(12)
+    n = 1024
+    a = (rng.random((n, n)) * 0.2).astype(np.float32)
+    a += np.diag(2 * np.abs(a).sum(axis=1) + 1.0).astype(np.float32)
+    b = (rng.standard_normal(n) + 1.0).astype(np.float32)
+    opts = dict(tolerance=3e-5, max_iterations=200, omega=0.9)
+    out = solvers.weighted_jacobi(a, b, **opts, device=dev)
+    ref = solvers.weighted_jacobi(a, b, **opts, device="cpu")
+    x_ref = ref.result.numpy()
+    x_err = float(np.abs(out.result.cpu().numpy() - x_ref).max()
+                  / np.abs(x_ref).max())
+    step = n * float(np.spacing(np.float32(np.abs(x_ref).max()))) / abs(
+        float(x_ref.sum()))
+    d_err = abs(float(out.diff) - float(ref.diff))
+    if (out.iterations != ref.iterations or not x_err < 1e-5
+            or not d_err <= 1e-3 * float(ref.diff) + 4 * step
+            or not abs(float(out.correlation) - float(ref.correlation))
+            < 1e-5):
+        raise AssertionError(
+            f"weighted_jacobi card vs CPU: iterations {out.iterations} / "
+            f"{ref.iterations}, result {x_err:.3g} of max|x| (tol 1e-5), "
+            f"diff {float(out.diff):.6g} / {float(ref.diff):.6g}, "
+            f"correlation {float(out.correlation):.7g} / "
+            f"{float(ref.correlation):.7g}")
+    log("3 kernels", f"weighted_jacobi (1024 x 1024, omega 0.9, tol 3e-5): "
+                     f"{out.iterations} checks on both; result within "
+                     f"{x_err:.3g} of max|x| (tol 1e-5), diff "
+                     f"{float(out.diff):.6g} / {float(ref.diff):.6g} (tol "
+                     f"1e-3 of it + 4 ulp-steps), correlation within "
+                     f"{abs(float(out.correlation) - float(ref.correlation)):.2g}"
+                     f" (tol 1e-5)")
+
+
+# -- 12. the viewer: the reference app's live mode on the card --------------------
+
+class ViewerClient:
+    """JSON over HTTP to the viewer serving in this process."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+
+    def post(self, path: str, obj=None, code: int = 200) -> dict:
+        import urllib.error
+        import urllib.request
+        req = urllib.request.Request(
+            self.base + path, data=json.dumps(obj or {}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                got, body = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            got, body = e.code, json.loads(e.read())
+        if got != code or (code == 200 and not body.get("ok")):
+            raise AssertionError(f"POST {path}: HTTP {got} {body} "
+                                 f"(expected {code})")
+        return body
+
+    def get(self, path: str) -> bytes:
+        import urllib.request
+        with urllib.request.urlopen(self.base + path, timeout=600) as r:
+            return r.read()
+
+    def state(self) -> dict:
+        return json.loads(self.get("/api/state"))
+
+
+def check_frame(png, data: bytes, shape) -> None:
+    img = png.decode_png(data)
+    if img.shape != shape:
+        raise AssertionError(f"frame {img.shape}, expected {shape}")
+
+
+def check_diagnostics(values: dict, label: str) -> None:
+    bad = {k: v for k, v in values.items()
+           if k not in ("step", "time") and not math.isfinite(v)}
+    if not values or bad:
+        raise AssertionError(f"{label} diagnostics not finite: {bad or 'none'}")
+
+
+def spindle_timing(torch, sp, smi, dev):
+    """The BEM solve at the viewer's width (n_power 3 = 256 loops, 400 x
+    800): ms to build the matrix, solve it and sum the grid field, and the
+    cancellation of the normal field at the collocation points."""
+    radius, height, current, n = 1.0, 2.0, 1e6, 256
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geom = sp.build_geometry(radius, height, n, device=dev)
+    a = sp._bem_matrix(geom, height)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    geom, cur, _ = sp.solve_surface_currents(radius, height, current,
+                                             n_loops=n, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    field = sp.grid_field(geom, cur, radius, height, 400, 800)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    inc = sp.coil_field(geom.points[:, 0], geom.points[:, 1], radius, height,
+                        current)
+    bn_inc = sp._normal_component(geom.normals, inc).double()
+    total = bn_inc + a.double() @ cur.double()
+    ratio = float(total.abs().max() / bn_inc.abs().max())
+    if not ratio < 1e-3 or not bool(torch.isfinite(field).all()):
+        raise AssertionError(f"spindle BEM at n_power 3: residual normal "
+                             f"field {ratio:.3g} of the incident (bar 1e-3)")
+    log("12 viewer", f"{smi}: spindle BEM (n_power 3, 256 loops, 400 x "
+                     f"800): matrix {(t1 - t0) * 1e3:.2f} ms, solve (matrix "
+                     f"again + host float64 solve) {(t2 - t1) * 1e3:.2f} ms, "
+                     f"grid field {(t3 - t2) * 1e3:.2f} ms; residual normal "
+                     f"field at the collocation points {ratio:.3g} of the "
+                     f"incident (bar 1e-3)")
+
+
+def phase12_viewer(torch, sp, fpu, smi, kernel_modules, dev="cuda",
+                   nparticles=4100):
+    """The port's viewer served in this process on 127.0.0.1:0 and driven
+    over HTTP at phase 5's width (16,810,000 protons)."""
+    import threading
+
+    from fusion_sim_torch import scenarios as sc
+    from fusion_sim_torch.utils import png
+    from fusion_sim_torch.viewer import server as vs
+
+    spindle_timing(torch, sp, smi, dev)
+    srv = vs.serve("127.0.0.1", 0, device=dev)
+    service = srv.service
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    http = ViewerClient(srv.server_address[1])
+    try:
+        spec = dict(sc.DEFAULT_SPEC, nparticles=nparticles, scenario="default")
+        n = nparticles ** 2
+        t0 = time.perf_counter()
+        http.post("/api/config", spec)
+        t1 = time.perf_counter()
+        http.post("/api/add_spindle_cusp_plasma_field",
+                  {"coil_current": 1e6, "n_power": 3})
+        t2 = time.perf_counter()
+        refused = http.post("/api/enable_fast_path", {}, code=400)
+        if "analytic sources" not in refused["error"]:
+            raise AssertionError(f"fast path refusal: {refused}")
+        http.post("/api/enable_sorted_path", {
+            "backend": "fused", "resort_every": 10, "spill_capacity": 16384})
+        http.post("/api/precalc")
+        t3 = time.perf_counter()
+        log("12 viewer", f"POST /api/config (default scenario, {n} protons, "
+                         f"400 x 800) {t1 - t0:.2f} s; add_spindle_cusp_"
+                         f"plasma_field (n_power 3) {(t2 - t1) * 1e3:.1f} "
+                         f"ms; enable_fast_path refused (400: "
+                         f"{refused['error']}); enable_sorted_path (fused, "
+                         f"resort 10, spill 16384) + precalc "
+                         f"{t3 - t2:.2f} s")
+        http.post("/api/step", {"n": 20})           # warm: the first window
+        zero_counts(kernel_modules)
+        t0 = time.perf_counter()
+        steps = http.post("/api/step", {"n": 20})["steps"]
+        dt = time.perf_counter() - t0
+        launches = fpu.LAUNCHES
+        others = {m.__name__.split(".")[-1]: m.LAUNCHES
+                  for m in kernel_modules if m is not fpu and m.LAUNCHES}
+        if steps != 40 or launches != 40 or others:
+            raise AssertionError(f"/api/step: steps {steps}, B2 launches "
+                                 f"{launches} (expected 2 x 20), other "
+                                 f"kernels {others}")
+        log("12 viewer", f"{smi}: POST /api/step n=20 (with its render, "
+                         f"PNG and diagnostics sample) {dt:.3f} s = "
+                         f"{20 / dt:.3f} steps/s = {2 * n * 20 / dt:.4g} "
+                         f"pushes/s; B2 launches {launches} (2 a step)")
+
+        zero_counts(kernel_modules)
+        s0 = http.state()["steps"]
+        http.post("/api/start")
+        fps_seen, t0 = [], time.perf_counter()
+        while time.perf_counter() - t0 < 3.5:
+            time.sleep(0.25)
+            st = http.state()
+            if "error" in st:
+                raise AssertionError(f"run thread: {st['error']}")
+            if st["fps"] > 0:
+                fps_seen.append(st["fps"])
+        http.post("/api/stop")
+        st = http.state()
+        ran = st["steps"] - s0
+        launches = fpu.LAUNCHES
+        if not fps_seen or st["running"] or st["fps"] != 0.0 or ran <= 0 \
+                or launches != 2 * ran:
+            raise AssertionError(f"run/stop: fps seen {fps_seen}, after "
+                                 f"stop running {st['running']} fps "
+                                 f"{st['fps']}, {ran} steps, B2 launches "
+                                 f"{launches}")
+        fps = fps_seen[-1]
+        log("12 viewer", f"{smi}: running ~3.5 s: {ran} steps, fps "
+                         f"{', '.join(f'{f:.3f}' for f in fps_seen)} (last "
+                         f"1 s window {fps:.3f} fps = {2 * n * fps:.4g} "
+                         f"pushes/s, a step + render + PNG a frame); B2 "
+                         f"launches {launches}; after stop fps "
+                         f"{st['fps']}, running {st['running']}")
+
+        check_diagnostics(st["diagnostics"], "/api/state")
+        with service.lock:
+            check_pusher_state(torch, service.sim.sim._sorted_state, n)
+        data = http.get("/frame.png")
+        check_frame(png, data, (800, 400, 3))
+        series = json.loads(http.get("/api/diagnostics"))["series"]
+        for sample in series:
+            check_diagnostics(sample, f"series step {sample['step']}")
+        since = json.loads(http.get(f"/api/diagnostics?since={s0}"))["series"]
+        if not series or any(x["step"] <= s0 for x in since):
+            raise AssertionError(f"diagnostics series: {len(series)} "
+                                 f"samples, since={s0} gave {since[:1]}")
+        page = http.get("/")
+        encoder = ("native (native/libfspng.so)" if png.native_available()
+                   else "pure Python (zlib, filter 0)")
+        times = []
+        with service.lock:
+            adapter = service.sim
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rgb = adapter.render()
+                t1 = time.perf_counter()
+                png.encode_png(rgb)
+                times.append(((t1 - t0) * 1e3,
+                              (time.perf_counter() - t1) * 1e3))
+            render_ms, encode_ms = np.median(np.array(times), axis=0)
+
+            def frames():
+                for _ in range(5):
+                    adapter.step()
+                    png.encode_png(adapter.render())
+
+            profile_window(torch, "12 viewer", "5 frames: step + render + "
+                           "PNG", frames)
+        log("12 viewer", f"no row dropped, {n} valid rows, diagnostics "
+                         f"finite ({len(series)} samples, {len(since)} since "
+                         f"step {s0}); /frame.png {len(data)} bytes decodes "
+                         f"to 800 x 400 RGB; page {len(page)} bytes; render "
+                         f"+ PNG encode {render_ms + encode_ms:.2f} ms "
+                         f"(render: density, frame and host copy "
+                         f"{render_ms:.2f} ms, encode {encode_ms:.2f} ms; "
+                         f"medians of 5; {encoder} encoder)")
+
+        for cfg, shape, label in (
+                ({"model": "es", "scenario": "two_stream"}, (200, 400, 3),
+                 "ES two_stream (100,000 particles, 512 cells)"),
+                ({"model": "em", "scenario": "weibel"}, (128, 128, 3),
+                 "EM weibel (500,000 particles, 128^2)")):
+            t0 = time.perf_counter()
+            http.post("/api/config", cfg)
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            steps = http.post("/api/step", {"n": 5})["steps"]
+            t2 = time.perf_counter()
+            st = http.state()
+            check_diagnostics(st["diagnostics"], label)
+            check_frame(png, http.get("/frame.png"), shape)
+            if steps != 5 or st["model"] != cfg["model"]:
+                raise AssertionError(f"{label}: steps {steps}, model "
+                                     f"{st['model']}")
+            log("12 viewer", f"{label}: config {t1 - t0:.2f} s, 5 steps "
+                             f"with a frame {t2 - t1:.3f} s; frame "
+                             f"{shape[0]} x {shape[1]} RGB, diagnostics "
+                             f"{json.dumps({k: round(v, 8) for k, v in st['diagnostics'].items()})}")
+    finally:
+        service.stop()
+        srv.shutdown()
+        thread.join(timeout=60)
+        srv.server_close()
+
+
 # -- 9. X1: the contraction-depth experiment at full size -----------------------
 
 def x1_bound_ms(s, g, m, k, p, precision):
@@ -2023,6 +2350,7 @@ def main() -> None:
         from fusion_sim_torch.models import electrostatic as es
         from fusion_sim_torch.models import pusher as pm
         from fusion_sim_torch.models import pusher_sorted as ps
+        from fusion_sim_torch.models import spindle as sp
         from fusion_sim_torch.examples import mxu_experiment as mx
         from fusion_sim_torch.ops import _build
         from fusion_sim_torch.ops import analytic as an
@@ -2032,6 +2360,7 @@ def main() -> None:
         from fusion_sim_torch.ops import fused_pic as fp
         from fusion_sim_torch.ops import fused_pic3d as f3
         from fusion_sim_torch.ops import fused_pusher as fpu
+        from fusion_sim_torch.ops import solvers
         from fusion_sim_torch.ops import sorted_gather as sg
         from fusion_sim_torch.ops.sorted_deposit import (Tiling2D, Tiling3D,
                                                          build_padded_layout)
@@ -2075,6 +2404,7 @@ def main() -> None:
     phase3_card_cases()
     phase3_x1(torch, cd, dev)
     phase3_slice(torch, es, em, pm, ps, an, sc, Tiling2D, Tiling3D, dev)
+    phase3_a1(torch, sp, solvers, dev)
     log("3 kernels", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the ES main path ----------------------------------------------------
@@ -2118,6 +2448,11 @@ def main() -> None:
     phase11_em_repair(torch, em, fe, Tiling2D, smi, kernel_modules,
                       em_resort_rate)
     log("11 EM repair", f"done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- 12. the viewer at phase 5's width ---------------------------------------
+    phase12_viewer(torch, sp, fpu, smi, kernel_modules)
+    log("12 viewer", f"done at {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [b1, b2, *b3, b4, b3_em, b5, b6, x1]}),
           flush=True)

@@ -19,15 +19,28 @@ counterpart):
   current deposition (plain and tile-sorted) and the fused EM substeps in
   2D3V and 3D3V (kernels B4, B6); incremental layout repair
   (``ops/repair``); the contraction-depth experiment's product (kernel X1,
-  ``ops/contraction_depth``, driven by ``examples/mxu_experiment``).
+  ``ops/contraction_depth``, driven by ``examples/mxu_experiment``); the
+  iterative solvers (``ops/solvers``: ``weighted_jacobi``,
+  ``SORIterative``, ``conjugate_gradient``) and the block reductions
+  (``ops/reduce``), plain PyTorch.
 * ``models`` — ``electrostatic``: ``ElectrostaticPIC`` and
   ``SortedElectrostaticPIC`` (backends xla / pallas, 2D and 3D, resort or
   ``repair=True``); ``pusher``: ``CylindricalParticlePusher`` (grid-parity
   path, the tile-sorted path with backends xla / pallas / fused and
-  optional repair, and ``enable_fast_path``); ``electromagnetic``:
-  ``ElectromagneticPIC``, ``weibel`` and ``SortedElectromagneticPIC``
-  (gather backends xla / pallas / fused, 2D3V and 3D3V, resort or repair).
-* ``scenarios``, ``constants``, ``config``, ``utils.render``.
+  optional repair, ``enable_fast_path`` and
+  ``add_spindle_cusp_plasma_field``); ``spindle``: the spindle-cusp BEM
+  solve; ``electromagnetic``: ``ElectromagneticPIC``, ``weibel`` and
+  ``SortedElectromagneticPIC`` (gather backends xla / pallas / fused,
+  2D3V and 3D3V, resort or repair).
+* ``utils`` — render, colormaps, figure, diagnostics, png (the
+  repository's ``native/`` encoder), checkpoint, debug, profiling,
+  stepping.
+* ``viewer.server`` — the HTTP viewer (the reference app's live mode):
+  ``python -m fusion_sim_torch.viewer.server --port 8612``.
+* ``scenarios``, ``constants``, ``config``.
+
+Not ported yet: the bench and entry points, the sharded models and
+``parallel/``, and ``dryrun_multichip`` (ROADMAP.md Queue A3-A5).
 
 The package root exports what the JAX package's root exports: ``config``,
 ``constants``, ``CylindricalParticlePusher``, ``PusherSpec`` and

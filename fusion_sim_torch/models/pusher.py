@@ -24,9 +24,6 @@ Random numbers: the reference's ``jax.random`` key becomes a
 cannot replay JAX's streams.  Step functions therefore take the substep
 uniforms as an argument; the shell draws them from its generator.  Every
 entry point runs on the CUDA card unless given ``device="cpu"``.
-
-Not ported yet (raises NotImplementedError naming its ROADMAP item):
-``add_spindle_cusp_plasma_field``.
 """
 
 from __future__ import annotations
@@ -63,7 +60,6 @@ SPEC_SCHEMA = {
     "interp": OptionalSpec("string"),  # 'nearest' (parity) | 'bilinear'
 }
 
-_NOT_YET = "is not ported yet (ROADMAP.md Queue A, {})"
 LOOP_FIELD_MODES = ("table", "exact")
 
 
@@ -341,9 +337,16 @@ class CylindricalParticlePusher:
 
     def add_spindle_cusp_plasma_field(self, coil_current: float,
                                       n_power: int = 3) -> None:
-        raise NotImplementedError(
-            "add_spindle_cusp_plasma_field " + _NOT_YET.format(
-                "item 10, spindle + scenarios"))
+        """Spindle-cusp conductor boundary solve (empic.js:1369-1378): the
+        BEM surface-current field of models/spindle.py added to B.  It is
+        a grid-only source, recorded so that the fast path refuses it."""
+        from .spindle import spindle_cusp_field
+
+        spec = self.spec
+        self._add_b(spindle_cusp_field(
+            radius=spec.radius, height=spec.height, nr=spec.nr, nz=spec.nz,
+            coil_current=coil_current, n_power=n_power, device=self.device))
+        self._sources.append(("spindle",))
 
     # ------------------------------------------------------- fast path
     def enable_fast_path(self, sink_box=None, source_box=None,

@@ -39,12 +39,12 @@ On a CUDA tensor ``contraction_depth`` launches the kernel (counted in
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
 from .fused_pic import _check
+from .precision import f32_matmul
 
 LAUNCHES = 0  # kernel launches by contraction_depth (CUDA tensors only)
 ORDERS = ("lhs_k_lanes", "lhs_k_sublanes")
@@ -80,17 +80,6 @@ def _validate(a, b, order, precision):
     return s, g, m, k, p
 
 
-@contextlib.contextmanager
-def _f32_matmul():
-    """f32 products with TF32 off (the card's matmul flag, restored after)."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def contraction_depth_plain(a: torch.Tensor, b: torch.Tensor, order: str,
                             precision: str) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``'default'`` rounds A and B
@@ -101,7 +90,7 @@ def contraction_depth_plain(a: torch.Tensor, b: torch.Tensor, order: str,
         a = a.to(torch.bfloat16).float()
         b = b.to(torch.bfloat16).float()
     colsum = a.sum(dim=-2 if order == "lhs_k_lanes" else -1)     # (S, G, k)
-    with _f32_matmul():
+    with f32_matmul():
         out = torch.einsum("sgk,sgkp->sp", colsum, b)
     return out.reshape(s, 1, p)
 

@@ -14,6 +14,8 @@ change nothing in the result.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 PRECISIONS = ("highest", "exact_bf16", "exact_bf16_pack", "exact_bf16_pack2",
@@ -31,3 +33,17 @@ def resolve_precision(name: str | None = None,
         raise ValueError(f"tiling dtype {tiling_dtype!r} "
                          f"(one of {TILING_DTYPES})")
     return torch.float32
+
+
+@contextlib.contextmanager
+def f32_matmul():
+    """f32 products with TF32 off (the card's matmul flag, restored after).
+
+    The flag is global to the process: callers that share the card between
+    threads hold their own lock around the scope."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

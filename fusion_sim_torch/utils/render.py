@@ -1,5 +1,5 @@
-"""Rendering of fields and particle moments to RGB frames (port of the
-parts of ``fusion_sim_tpu/utils/render.py`` that ``density()`` needs).
+"""Rendering of fields and particle moments to RGB frames (port of
+``fusion_sim_tpu/utils/render.py``).
 
 * ``render_bmag`` — |B| split by direction into RGB (``programBMag``,
   empic.js:467-493): red = |B|*|min(0, dir_z)|, green = |B|*dir_r,
@@ -7,8 +7,11 @@ parts of ``fusion_sim_tpu/utils/render.py`` that ``density()`` needs).
 * ``render_density_overlay`` — the density composited on top with the
   reference's SRC_ALPHA, ONE blending (empic.js:1090-1116, :1502-1505):
   the source fragment is 0.5*(a, a, a, 1), so each channel gains 0.25*a.
+* ``frame_to_uint8`` — clamp to [0, 1] and quantize for streaming (the
+  drawImage analogue, fusionsim.js:176-178), on the frame's device.
 
-Frames are (nr, nz, 3) float RGB, as the reference's ``density`` returns.
+Frames are (nr, nz, 3) float RGB, as the reference's ``density`` returns;
+``frame_to_uint8`` returns the image layout (nz, nr, 3), z rising upward.
 """
 
 from __future__ import annotations
@@ -34,3 +37,11 @@ def render_density_overlay(background: torch.Tensor,
     src = 0.5*(a, a, a, 1))."""
     a = moments_avg[..., 3]
     return background + ((0.5 * a) * 0.5)[..., None]
+
+
+def frame_to_uint8(frame: torch.Tensor) -> torch.Tensor:
+    """Clamp and quantize an (nr, nz, 3) float frame to image-layout uint8
+    on its device: transposed to (nz, nr, 3) and flipped in z so that row 0
+    is the top of the canvas.  The caller copies it to the host once."""
+    img = (torch.clamp(frame, 0.0, 1.0) * 255.0).to(torch.uint8)
+    return img.permute(1, 0, 2).flip(0)

@@ -170,7 +170,7 @@ def test_shell_fast_path_matches_reference_scenario_and_validates():
     port.disable_fast_path()
     assert port._fast_scenario is None
 
-    # every ValueError of the reference, and the spindle source still raises
+    # every ValueError of the reference, and the spindle source is refused
     grid_b = tpm.CylindricalParticlePusher(SPEC, device="cpu")
     grid_b.set({"B": np.zeros((64, 128, 3), np.float32)})
     with pytest.raises(ValueError, match="grid B"):
@@ -185,8 +185,16 @@ def test_shell_fast_path_matches_reference_scenario_and_validates():
     other._sources.append(("spindle",))
     with pytest.raises(ValueError, match="analytic sources"):
         other.enable_fast_path()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        other.add_spindle_cusp_plasma_field(1e4)
+    # the spindle field is added to B (tests/test_torch_spindle.py holds it
+    # against the reference) and recorded, so the fast path refuses it
+    spindle = tpm.CylindricalParticlePusher(SPEC, device="cpu")
+    b0 = spindle.fields.b.clone()
+    spindle.add_spindle_cusp_plasma_field(1e4, n_power=1)
+    assert spindle._sources == [("spindle",)]
+    assert bool(torch.isfinite(spindle.fields.b).all())
+    assert float((spindle.fields.b - b0).abs().max()) > 0
+    with pytest.raises(ValueError, match="analytic sources"):
+        spindle.enable_fast_path()
 
 
 def dataclass_fields(scen):

@@ -63,6 +63,8 @@ def test_default_device_is_cuda():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert CylindricalParticlePusher(spec).device.type == "cuda"
+        from fusion_sim_torch.viewer.server import SimulationService
+        assert SimulationService().device.type == "cuda"
         return
     config = es.ESConfig(grid_shape=(32, 32), cell_size=(0.1, 0.1), dt=0.05,
                          charge=-1e-3, mass=1e-3)
@@ -113,6 +115,18 @@ def test_default_device_is_cuda():
                                                 tiling=tiling, repair=True),
             lambda: mxu_experiment.make_bench(16, 24, 128, 2, 2,
                                               "lhs_k_lanes", "default")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    # this slice's entry points: the spindle field, the iterative solvers'
+    # wrapper, the viewer's service and server
+    from fusion_sim_torch.models.spindle import spindle_cusp_field
+    from fusion_sim_torch.ops.solvers import SORIterative
+    from fusion_sim_torch.viewer.server import SimulationService, serve
+    for build in (
+            lambda: spindle_cusp_field(1.0, 2.0, 8, 16, 1e6, n_power=1),
+            lambda: SORIterative(1),
+            lambda: SimulationService(),
+            lambda: serve(port=0)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
     assert resolve_device("cpu").type == "cpu"

@@ -348,14 +348,19 @@ def test_shell_sorted_path_matches_reference():
 
 def test_not_ported_and_validation():
     port = tpm.CylindricalParticlePusher(SPEC, device="cpu")
-    # the fast path and repair are ported (tests/test_torch_analytic.py,
-    # tests/test_torch_repair.py); the spindle field still waits
+    # the fast path, repair and the spindle field are ported
+    # (tests/test_torch_analytic.py, tests/test_torch_repair.py,
+    # tests/test_torch_spindle.py)
     port.add_bz(0.01)
     port.enable_fast_path()
     assert port._fast_scenario.bz == 0.01
     port.disable_fast_path()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.add_spindle_cusp_plasma_field(1e4)
+    b0 = port.fields.b.clone()
+    port.add_spindle_cusp_plasma_field(1e4, n_power=1)
+    assert port._sources[-1] == ("spindle",)
+    assert float((port.fields.b - b0).abs().max()) > 0
+    with pytest.raises(ValueError, match="analytic sources"):
+        port.enable_fast_path()
     port.enable_sorted_path(tiling=TTiling(**TILE), repair=True,
                             repair_free_slots=32)
     st = port._sorted_state
