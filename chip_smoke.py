@@ -149,12 +149,37 @@ Phases 4-11 build their sims through the port's bench and example builders
                pallas) and bench_3d (es, em) with ``--steps 2``,
                drift_control f32 and f64 (300 steps), bench_slab_capacity
                (124,999,680 particles, peak memory printed); no row
-               dropped, each path's kernels launched; then the total time.
+               dropped, each path's kernels launched;
+15. sharded  — ``ShardedElectrostaticPIC(backend='pallas')`` in a world of
+               one (NCCL, started by ``parallel.mesh.make_mesh``) at the ES
+               half of the reference's one-chip sharded bench: 2D at
+               10,002,432 particles on 512^2 (B1), the same with
+               ``repair=True`` after a 117-step warm-up, and 3D at
+               29,997,056 on 128^3 (B5).  Each holds its kernel bit for bit
+               (rho within 1e-5 of its max) against the plain version on
+               the shard's pseudo-grid inputs, holds its carried rho within
+               1e-5 of its max against a fresh deposit in its own frame,
+               holds 4 steps against ``SortedElectrostaticPIC(backend=
+               'pallas')`` from the same positions (kinetic energy within
+               1e-5, sorted positions within 1e-3 of a cell, rho within
+               1e-4 of its max: the shard's frame x + halo rounds to f32
+               each step), needs no overflow (no particle lost) and a move
+               under the halo's bound (min(slab/2, halo_w - 1) cells a
+               step; the reference's disp_bound of 1 cell is shown), and
+               prints steps/s, ms a step, the rows
+               dropped past the spill capacity in both models (the 2D
+               rung's configuration drops late in a window) and the repair
+               rung's unplaced rows, the kernel's
+               launches and ms, the ratio to the single-device fused step,
+               the step's pieces (frame shift, solve, kernel, spill mask,
+               wrap back) in ms and one profiled window; then the total
+               time.
 
 The line before the last lists the kernels as JSON (B3 once a form: the
 pusher's nearest C = 12 and C = 1, the EM route's cic C = 6; X1 with its
 sweep's launches and the numbers of its lhs_k_lanes / highest / K = 128
-variant); the last line is the result: ``{"ok": true, "device": {...}}``.
+variant; B1 and B5 again for each run of phase 15); the last line is the
+result: ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -2468,6 +2493,291 @@ def phase14_examples(torch, smi, kernel_modules):
     return launches_by_run
 
 
+# -- 15. the sharded ES model in a world of one (kernels B1, B5) ----------------
+
+def sharded_es_rung(es, shd, Tiling2D, Tiling3D, ndim: int, repair: bool):
+    """The ES half of the reference's one-chip sharded bench
+    (examples/bench_sharded_1chip.py:86-146), its configuration's source:
+    10,002,432 particles on 512^2 (2D, ``Tiling2D(32, 32, 1024, margin
+    6)``, resort 16, spill 16,384) or 29,997,056 on 128^3 (3D,
+    ``Tiling3D((8, 8, 8), 512, margin 2)``, resort 6, spill 65,536); L = 2
+    pi, dt 0.05, charge -vol/n and mass vol/n, velocities 0.05 N(0, 1)
+    from seed 0, one shard, migration buffer 8,192, capacity
+    (int(1.05 n) // 1024) * 1024 + 1024.  ``repair``: spill 163,840, 2,048
+    free slots a tile, resort 1e9 and a 117-step warm-up to the spill
+    equilibrium.  Returns the sharded config, the particles, the
+    single-device model's keywords for the same rung and the warm-up."""
+    n = 10_002_432 if ndim == 2 else 29_997_056
+    nc = 512 if ndim == 2 else 128
+    rng = np.random.default_rng(0)
+    pos = (rng.random((n, ndim)) * nc).astype(np.float32)
+    if ndim == 2:
+        tiling, resort = Tiling2D(tile_r=32, tile_z=32, block=1024,
+                                  margin=6), 16
+    else:
+        tiling, resort = Tiling3D(tile=(8, 8, 8), block=512, margin=2), 6
+    length = 2 * np.pi
+    vol = length ** ndim
+    base = es.ESConfig(grid_shape=(nc,) * ndim,
+                       cell_size=(length / nc,) * ndim, dt=0.05,
+                       charge=-vol / n, mass=vol / n)
+    vel = (0.05 * rng.standard_normal((n, ndim))).astype(np.float32)
+    spill = 163840 if repair else (16384 if ndim == 2 else 65536)
+    free = 2048 if repair else 256
+    resort = 10 ** 9 if repair else resort
+    cfg = shd.ShardedESConfig(
+        base=base, n_shards=1, capacity=(int(n * 1.05) // 1024) * 1024 + 1024,
+        migration_buffer=8192, tiling=tiling, resort_every=resort,
+        repair=repair, backend="pallas", spill_capacity=spill,
+        repair_free_slots=free)
+    single_kw = dict(tiling=tiling, resort_every=resort, spill_capacity=spill,
+                     backend="pallas", repair=repair, repair_free_slots=free,
+                     check_spill=False)
+    return cfg, pos, vel, single_kw, (117 if repair else 0)
+
+
+def sharded_vs_single(torch, label, cfg, sim, single, steps: int):
+    """A few steps of the sharded model against the single-device fused
+    model from the same positions: the kinetic energy within 1e-5, the
+    live rows' sorted positions within 1e-3 of a cell (the card-vs-CPU
+    checks' bar; the layouts differ, so no row-for-row compare) and the
+    folded rho (the whole grid at one shard) within 1e-4 of its max.  The
+    shard works in its pseudo-grid frame, x + halo_w rounded to f32 each
+    step, so its rows drift from the single-device model's by ulps of
+    x + halo_w (up to ~1.6e-4 cells after 4 steps at 512^2): rho is held
+    at 1e-5 against the shard's own deposit in its frame instead (the
+    kernel's deposit, the patch and the apron fold, up to summation
+    order)."""
+    for _ in range(steps):
+        sim.step(1)
+        single.step(1)
+    st, ss = sim.state, single.state
+    seed = sim._seed_rho(st)
+    own_err = float((st.rho - seed).abs().max()) / float(seed.abs().max())
+    if not own_err <= 1e-5:
+        raise AssertionError(f"{label}: carried rho vs its own deposit "
+                             f"{own_err} of its max")
+    rho_err = float((st.rho - ss.rho).abs().max()) / float(
+        ss.rho.abs().max())
+    if not rho_err <= 1e-4:
+        raise AssertionError(f"{label}: rho {rho_err} of its max against "
+                             f"the single-device model")
+    mass = cfg.base.mass
+
+    def kinetic(v, live):
+        return 0.5 * mass * float(
+            (torch.where(live[:, None], v, 0.0).double() ** 2).sum())
+    ke_s, ke_1 = kinetic(st.velocity, st.alive), kinetic(ss.velocity,
+                                                         ss.valid)
+    if not math.isclose(ke_s, ke_1, rel_tol=1e-5):
+        raise AssertionError(f"{label}: kinetic {ke_s} vs {ke_1}")
+    grid = torch.tensor(cfg.base.grid_shape, dtype=torch.float32,
+                        device=st.position.device)
+    ps = torch.remainder(st.position[st.alive], grid)
+    p1 = torch.remainder(ss.position[ss.valid], grid)
+    if ps.shape != p1.shape:
+        raise AssertionError(f"{label}: {ps.shape[0]} live rows against "
+                             f"{p1.shape[0]}")
+    dmax = max(float((torch.sort(ps[:, a]).values
+                      - torch.sort(p1[:, a]).values).abs().max())
+               for a in range(ps.shape[1]))
+    if dmax > 1e-3:
+        raise AssertionError(f"{label}: sorted positions differ by {dmax}")
+    return (f"carried rho within {own_err:.3g} of its max against the "
+            f"shard's own deposit; {steps} steps against "
+            f"SortedElectrostaticPIC(backend='pallas'): rho within "
+            f"{rho_err:.3g} of its max, kinetic {ke_s:.9g} / {ke_1:.9g}, "
+            f"sorted positions within {dmax:.3g}")
+
+
+def sharded_pieces(torch, shd, sim, single, substep, args) -> str:
+    """The sharded fused step's pieces on its current state, ms each (CUDA
+    events, median of 5): the frame shift into the pseudo-grid, the solve
+    with its halos, the kernel, the spill mask and count, the wrap back
+    (with migration or repair and the dead rows' zeroing), one whole
+    step; and the single-device step beside it."""
+    cfg, ring, st = sim.config, sim._ring, sim.state
+    out = substep(*args)
+    mask = (~out[3] | (st.tile_id >= shd._n_tiles(cfg))) & st.alive
+    idx, _ = shd._spill_rows(mask, cfg.spill_capacity, mask.shape[0])
+    ok = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    pieces = (
+        ("frame shift", lambda: shd._to_local(cfg, st.position, ring.x_lo)),
+        ("solve + halos", lambda: shd._solve_e_pad(
+            cfg, ring, shd._neutralize(cfg, ring, st.rho), cfg.halo_w)),
+        ("kernel", lambda: substep(*args)),
+        ("spill mask + count", lambda: shd._spill_rows(
+            (~out[3] | (st.tile_id >= shd._n_tiles(cfg))) & st.alive,
+            cfg.spill_capacity, mask.shape[0])),
+        ("wrap back", lambda: shd._wrap_and_migrate(
+            cfg, ring, st, out[0], out[1], st.alive,
+            st.overflow, idx, ok, mask, shd._n_tiles(cfg))),
+        ("whole step", lambda: sim._step(st)),
+        ("single-device step", (single._step_pallas if single.backend
+                                == "pallas" else single._step_xla)))
+    times = []
+    for name, fn in pieces:
+        keep = single.state
+        times.append(f"{name} {median_ms(torch, fn, reps=5, warm=1):.4f}")
+        single.state = keep
+    return "ms: " + ", ".join(times) + f" ({idx.shape[0]} rows spilled)"
+
+
+def timed_steps(torch, sim, steps: int, chunk: int):
+    """(steps/s, ms a step) over ``steps`` steps in calls of ``chunk``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps // chunk):
+        sim.step(chunk)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return steps / secs, 1e3 * secs / steps
+
+
+def phase15_sharded(torch, es, fp, f3, Tiling2D, Tiling3D, smi,
+                    kernel_modules):
+    """``ShardedElectrostaticPIC(backend='pallas')`` on the card in a world
+    of one (NCCL, started by ``make_mesh``): the 2D rung, its repair form
+    and the 3D rung of ``sharded_es_rung``.  Each holds its kernel against
+    the plain version on the shard's own pseudo-grid inputs, holds a few
+    steps against the single-device fused model, needs no overflow and a
+    move under the halo's bound, and prints steps/s, ms a step, the drops
+    and (repair) unplaced rows of both models, device busy, the kernel's
+    launches and ms, and the ratio
+    to the single-device fused step (the reference's bar is 1.3x: shown,
+    not enforced)."""
+    import torch.distributed as dist
+
+    from fusion_sim_torch.models import electrostatic_sharded as shd
+    from fusion_sim_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, ("space",))
+    log("15 sharded", f"world of {dist.get_world_size()} "
+                      f"({dist.get_backend()}), mesh {mesh}")
+    entries = []
+    for label, ndim, repair in (("2D", 2, False), ("2D repair", 2, True),
+                                ("3D", 3, False)):
+        t0 = time.perf_counter()
+        cfg, pos, vel, single_kw, warmup = sharded_es_rung(
+            es, shd, Tiling2D, Tiling3D, ndim, repair)
+        n = pos.shape[0]
+        sim = shd.ShardedElectrostaticPIC(cfg, mesh, pos, vel)
+        single = es.SortedElectrostaticPIC(cfg.base, pos, vel, **single_kw)
+        del pos, vel
+        torch.cuda.synchronize()
+        kmod, kname = (fp, "B1") if ndim == 2 else (f3, "B5")
+        log("15 sharded", f"{label}: set-up {time.perf_counter() - t0:.2f} s "
+                          f"({n} particles, pseudo-grid {cfg.pseudo_shape} "
+                          f"(halo {cfg.halo_w}), {sim.state.position.shape[0]}"
+                          f" shard rows against {single.state.position.shape[0]}"
+                          f" single-device rows)")
+        log("15 sharded", f"{label}: " + sharded_vs_single(
+            torch, label, cfg, sim, single, 4))
+
+        # the kernel against its plain version on the shard's inputs
+        args = sim.fused_substep_args()
+        substep = (kmod.fused_es2d_substep if ndim == 2
+                   else kmod.fused_es3d_substep)
+        plain = (kmod.fused_es2d_substep_plain if ndim == 2
+                 else kmod.fused_es3d_substep_plain)
+        err, report = compare_fused(torch, kname, substep(*args),
+                                    plain(*args), args[3] != 0, "rho")
+        log("15 sharded", f"{label}: {kname} on the shard's pseudo-grid "
+                          f"inputs: {report}")
+
+        for _ in range(warmup):
+            sim.step(1)
+            single.step(1)
+        window = 16 if ndim == 2 else 6
+        steps = 2 * window if ndim == 2 else 3 * window
+        zero_counts(kernel_modules)
+        rate, ms = timed_steps(torch, sim, steps, window)
+        launches = kmod.LAUNCHES
+        if launches != steps:
+            raise AssertionError(f"{label}: {kname} launches {launches} != "
+                                 f"steps {steps}")
+        rate_1, ms_1 = timed_steps(torch, single, steps, window)
+        st = sim.state
+        inv = sim.check_invariants()
+        if inv["overflow"]:
+            raise AssertionError(f"{label}: overflow {inv['overflow']}")
+        # unplaced: relocations that found their tile's stack empty keep
+        # their exact patch (nothing is lost); the sharded layout is built
+        # with reserve but not spread (the reference's), so its stacks
+        # hold a tile's pad only: shown beside the single-device count
+        unplaced = (int(st.unplaced.sum()), int(single.state.unplaced)) \
+            if repair else None
+        # rows past spill_capacity lose their deposits; the reference's 2D
+        # rung (resort 16 at margin 6) spills past its 16,384 late in a
+        # window, in both models: shown, as the slab rung's are (phase 14)
+        dropped = int(st.spill_dropped.sum())
+        dropped_1 = single.state.spill_dropped
+        # the sorted compositions' aprons are halo_w cells wide: a row may
+        # move less than halo_w - 1 cells a step (and half a slab for the
+        # migration masks).  The reference's disp_bound, APRON_W - 1 = 1
+        # cell, is the plain composition's apron; the 2D rungs' thermal
+        # tail (0.2 cells a step per unit of N(0, 1), over 2e7 draws)
+        # passes it: shown, not gated
+        halo_bound = min(cfg.slab / 2, cfg.halo_w - 1)
+        if not inv["max_disp_cells"] < halo_bound:
+            raise AssertionError(f"{label}: displacement {inv} past the "
+                                 f"halo's bound {halo_bound}")
+        for name in ("position", "velocity", "rho"):
+            if not bool(torch.isfinite(getattr(st, name)).all()):
+                raise AssertionError(f"{label}: state.{name} not finite")
+        n_live = int(st.alive.sum())
+        if n_live != n:
+            raise AssertionError(f"{label}: {n_live} live rows, expected {n}")
+        log("15 sharded", f"{label} {smi}: {steps} timed steps, {rate:.3f} "
+                          f"steps/s, {ms:.4f} ms/step; single-device fused "
+                          f"{rate_1:.3f} steps/s, {ms_1:.4f} ms/step; ratio "
+                          f"{ms / ms_1:.3f}x (the reference's bar: 1.3x); "
+                          f"{kname} launches {launches}; spill patched "
+                          f"{int(st.spill.sum())}, dropped past the "
+                          f"capacity {dropped} (single-device {dropped_1}),"
+                          f" overflow 0" + (f", unplaced {unplaced[0]} "
+                                            f"(single-device {unplaced[1]})"
+                                            if repair else "")
+                          + f", max displacement "
+                          f"{inv['max_disp_cells']:.4f} cells a step (the "
+                          f"halo's bound {halo_bound:g}; the reference's "
+                          f"disp_bound {cfg.disp_bound:g} "
+                          + ("held)" if inv["disp_bound_ok"] else
+                             "passed by the thermal tail)"))
+
+        args = sim.fused_substep_args()
+        log("15 sharded", f"{label} pieces on the timed run's state, "
+                          + sharded_pieces(torch, shd, sim, single, substep,
+                                           args))
+        k_ms = median_ms(torch, lambda: substep(*args))
+        p_ms = median_ms(torch, lambda: plain(*args), reps=3, warm=1)
+        rows, n_valid = args[1].shape[0], int((args[3] != 0).sum())
+        bound_fn = substep_bound_ms if ndim == 2 else es3d_bound_ms
+        b_ms, b_by, _ = bound_fn(rows, n_valid, cfg.pseudo_shape,
+                                 cfg.tiling.block)
+        log("15 sharded", f"{label}: {kname} on the shard's inputs ({rows} "
+                          f"rows): kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                          f"ms, bound {b_ms:.4f} ms ({b_by})")
+        del args
+        profile_window(torch, "15 sharded", f"{label}, {window} steps",
+                       lambda: sim.step(window))
+        entries.append({
+            "name": f"{kname}:{'es2d' if ndim == 2 else 'es3d'}_substep, "
+                    f"sharded ES {label} (one shard's pseudo-grid)",
+            "route": "cuda",
+            "source": ("fusion_sim_torch/csrc/es2d_substep.cu" if ndim == 2
+                       else "fusion_sim_torch/csrc/es3d_substep.cu"),
+            "replaces": ("fusion_sim_tpu/ops/pallas_pic.py:271" if ndim == 2
+                         else "fusion_sim_tpu/ops/pallas_pic3d.py:213"),
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+        del sim, single
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return entries
+
+
 def main() -> None:
     try:
         import torch
@@ -2594,11 +2904,16 @@ def main() -> None:
     log("13 bench", f"done at {time.perf_counter() - t_start:.1f} s")
     phase14_examples(torch, smi, kernel_modules)
     log("14 examples", f"done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 15. the sharded ES model in a world of one ------------------------------
+    sharded = phase15_sharded(torch, es, fp, f3, Tiling2D, Tiling3D, smi,
+                              kernel_modules)
+    log("15 sharded", f"done at {time.perf_counter() - t_start:.1f} s")
     log("total", f"every phase passed in {time.perf_counter() - t_start:.1f}"
                  f" s")
 
-    print(json.dumps({"kernels": [b1, b2, *b3, b4, b3_em, b5, b6, x1]}),
-          flush=True)
+    print(json.dumps({"kernels": [b1, b2, *b3, b4, b3_em, b5, b6, x1,
+                                  *sharded]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

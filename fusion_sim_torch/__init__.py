@@ -31,7 +31,15 @@ counterpart):
   ``add_spindle_cusp_plasma_field``); ``spindle``: the spindle-cusp BEM
   solve; ``electromagnetic``: ``ElectromagneticPIC``, ``weibel`` and
   ``SortedElectromagneticPIC`` (gather backends xla / pallas / fused,
-  2D3V and 3D3V, resort or repair).
+  2D3V and 3D3V, resort or repair); ``electrostatic_sharded``:
+  ``ShardedElectrostaticPIC``, the 1-axis domain-decomposed ES loop in
+  2D and 3D (backends xla / pallas on kernels B1 / B5, resort or repair),
+  one rank a slab.
+* ``parallel`` — meshes (``torch.distributed.device_mesh``), DTensor
+  placements, halo exchange and particle migration on
+  ``torch.distributed`` (NCCL on the card, gloo on the CPU); with the
+  sharded solve (``ops/solvers.poisson_fft_sharded``) and the sharded
+  repair (``ops/repair``).
 * ``utils`` — render, colormaps, figure, diagnostics, png (the
   repository's ``native/`` encoder), checkpoint, debug, profiling,
   stepping.
@@ -45,19 +53,21 @@ counterpart):
   two-stream, Weibel, the ES / EM / 3D / pusher / slab benches, the drift
   control, the contraction-depth experiment).
 
-Not ported yet: the sharded models and ``parallel/``, ``dryrun_multichip``
-and the probe / profiling examples (ROADMAP.md Queue A3b-A5).
+Not ported yet: the sharded EM model, the two-axis sharded ES and EM
+models, ``dryrun_multichip`` and the probe / profiling examples
+(ROADMAP.md Queue A4b, A4c, A5 and A6).
 
 The package root exports what the JAX package's root exports: ``config``,
 ``constants``, ``CylindricalParticlePusher``, ``PusherSpec`` and
-``make_cylindrical_particle_pusher``.  Importing it builds no kernel: each
+``make_cylindrical_particle_pusher``; and ``parallel``, which the
+reference's layout lists beside ``models``, ``ops`` and ``utils``.  Importing it builds no kernel: each
 kernel is compiled at its first launch.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``_device.resolve_device``).
 """
 
-from . import config, constants  # noqa: F401
+from . import config, constants, parallel  # noqa: F401
 from .models.pusher import (  # noqa: F401
     CylindricalParticlePusher,
     PusherSpec,

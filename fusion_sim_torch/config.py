@@ -19,6 +19,7 @@ Schema grammar:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -119,3 +120,17 @@ def validate_object(obj: Mapping[str, Any], schema: Mapping[str, Any],
                 continue
             raise SpecError(f"{path}: required property is missing")
         _check(obj[name], spec, path)
+
+
+def validate_dataclass(instance: Any) -> None:
+    """Validate a ``@dataclass`` config whose fields carry
+    ``metadata={'spec': ...}``; a field without a spec is not checked, and
+    ``None`` passes an ``Optional`` spec."""
+    for field in dataclasses.fields(instance):
+        spec = field.metadata.get("spec")
+        if spec is None:
+            continue
+        value = getattr(instance, field.name)
+        if value is None and isinstance(spec, Optional):
+            continue
+        _check(value, spec, field.name)

@@ -2,10 +2,12 @@
 
 Port of ``fusion_sim_tpu/ops/interp.py``: first-order CIC kernels over
 periodic grids of any rank, with grid values at integer nodes.  The packed
-forms keep the reference's arithmetic (one base-cell row per particle with
-the 2^d corners in channels, rolled back afterwards), so the two packages
-agree to f32 rounding; on the card they run as PyTorch scatter/gather
-kernels, which is all the spill patch and the diagnostics need.
+forms keep the reference's arithmetic (the deposit: one base-cell row per
+particle with the 2^d corners in channels, rolled back afterwards; the
+gather: the 2^d corner values summed in the same order), so the two
+packages agree to f32 rounding; on the card they run as PyTorch
+scatter/gather kernels, which is all the spill patch and the diagnostics
+need.
 """
 
 from __future__ import annotations
@@ -111,28 +113,30 @@ def cic_gather_packed(grid: torch.Tensor, position: torch.Tensor,
                       shape: tuple[int, ...]) -> torch.Tensor:
     """CIC gather with a single gather row per particle (exact).
 
-    ``grid``: (*shape,) or (*shape, C); returns (N,) or (N, C)."""
-    corners = _corners(len(shape))
-    channels = tuple(grid.shape[len(shape):])
-    c_width = math.prod(channels) if channels else 1
-    blocks = []
-    for corner in corners:
-        shifts = [a for a, c in enumerate(corner) if c]
-        shifted = (torch.roll(grid, [-1] * len(shifts), shifts) if shifts
-                   else grid)
-        blocks.append(shifted.reshape(-1, c_width))
-    table = torch.cat(blocks, dim=-1)
+    ``grid``: (*shape,) or (*shape, C); returns (N,) or (N, C).  The
+    reference reads each particle's base-cell row of a table holding the
+    2^d corner values (the grid rolled once a corner); the port reads the
+    same corner values straight from the grid at the wrapped corner
+    indices, and sums them with the same weights in the same corner order,
+    so the result is the same to the bit with work in the particles only
+    (a spill patch of a few rows does not pay for the whole grid)."""
+    n_dim = len(shape)
+    channels = tuple(grid.shape[n_dim:])
+    flat = grid.reshape(-1, math.prod(channels) if channels else 1)
     base, frac = _corner_weights(position)
-    base = torch.remainder(
-        base, torch.tensor(shape, dtype=torch.int64, device=position.device))
-    rows = table[(base * _strides(shape, position.device)).sum(1)]
+    stride = [math.prod(shape[a + 1:]) for a in range(n_dim)]
+    # per axis: the wrapped base cell and the cell after it
+    cells = []
+    for a, n in enumerate(shape):
+        b0 = torch.remainder(base[:, a], n)
+        cells.append((b0, torch.remainder(b0 + 1, n)))
+    ones = torch.ones(position.shape[0], dtype=grid.dtype,
+                      device=grid.device)
     out = 0.0
-    for k, corner in enumerate(corners):
-        w = _corner_weight(
-            frac, corner,
-            torch.ones(position.shape[0], dtype=grid.dtype,
-                       device=grid.device))
-        out = out + w[:, None] * rows[:, k * c_width:(k + 1) * c_width]
+    for corner in _corners(n_dim):
+        idx = sum(cells[a][c] * stride[a] for a, c in enumerate(corner))
+        w = _corner_weight(frac, corner, ones)
+        out = out + w[:, None] * flat[idx]
     if channels:
         return out.reshape((position.shape[0],) + channels)
     return out[:, 0]

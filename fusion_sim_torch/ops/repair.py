@@ -1,5 +1,5 @@
 """Incremental per-tile layout repair for the sorted layouts (port of
-``fusion_sim_tpu/ops/repair.py``, single device).
+``fusion_sim_tpu/ops/repair.py``).
 
 The tile-sorted layouts (``ops/sorted_deposit.build_padded_layout``) decay
 as particles drift: rows that leave their block's window fall onto the
@@ -25,9 +25,10 @@ Every function runs on the device without a host read: the reference's
 bucket, and its sorts are stable ``torch.argsort``es (``jnp.argsort`` is
 stable too), so slot assignment follows the reference row for row.  The
 reference clamps out-of-range gather indices; the port clamps them
-explicitly.  The sharded functions (``sharded_repair_migrate``,
-``init_spare_list``, ``make_sharded_free_init``) come with the sharded
-models (ROADMAP Queue A 11).
+explicitly.  The sharded models' functions (``sharded_repair_migrate``,
+``init_spare_list``, ``make_sharded_free_init``) work on one rank's shard;
+the migration they call exchanges rows with the ring neighbours
+(``parallel/migration.migrate_ring_stacked``).
 """
 
 from __future__ import annotations
@@ -283,6 +284,131 @@ def repair_relocate(state, x1, velocity, idx, ok, pos_k, vel_k, shape,
     extra = dict(free_idx=fidx, free_cnt=fcnt, valid=valid,
                  unplaced=state.unplaced + nun)
     return x1, velocity, valid, extra
+
+
+def sharded_repair_migrate(
+        x1, velocity, alive, tile_id, idx, ok, lx1, ly1_wrapped, go_left,
+        go_right, free_idx, free_cnt, spare_idx, spare_cnt, unplaced,
+        overflow, arrival_tiles_fn, *, group, n_shards: int,
+        migration_buffer: int, pseudo_shape: tuple, tiling, n_tiles: int,
+        slab: int, halo_w: int, in_win=None, eager_keep: int = 0,
+        eager_cap: int = 0):
+    """The repair tail of a sharded sorted step on one rank: relocate the
+    compacted spilled rows (``idx``/``ok``, already exact-patched in
+    ``x1``/``velocity``) into dead slots of their new tile, then migrate
+    the slab crossers with stack-coordinated slots
+    (``parallel/migration.migrate_ring_stacked`` over ``group``).
+
+    ``lx1``: (N,) every row's new LOCAL x (pseudo-grid frame);
+    ``ly1_wrapped``: (N, d-1) its other new coordinates, wrapped.  Rows
+    about to migrate are not relocated (their slots free on the other side
+    of the exchange); ``go_left``/``go_right`` may be None on one shard
+    without eager repair, which reads no crossing.  With ``eager_keep > 0`` (``in_win``: this step's
+    in-window mask), staying rows within ``eager_keep`` cells of leaving
+    their window are relocated too, with their own exact values; they sit
+    inside the owned slab, so the pseudo-grid's open x axis never wraps
+    under the band test.
+
+    Returns ``(x1, velocity, alive, free_idx, free_cnt, spare_idx,
+    spare_cnt, unplaced, overflow)``; ``x1`` and ``velocity`` may be
+    updated in place."""
+    from ..parallel import migration
+
+    n_tot = x1.shape[0]
+    tid_fn = tile_ids if len(pseudo_shape) == 2 else tile_ids_3d
+    tile_id = tile_id.to(torch.int64)
+    at = torch.clamp(idx, max=n_tot - 1)
+    # rows this shard keeps: local x inside the owned slab
+    lx_k = lx1[at]
+    staying = (lx_k >= float(halo_w)) & (lx_k < float(halo_w + slab))
+    req = ok & staying
+    new_t = tid_fn(torch.cat([lx_k[:, None], ly1_wrapped[at]], dim=1),
+                   pseudo_shape, tiling)
+    old_t = tile_id[at]
+    if eager_keep:
+        # the band mask on the view before relocation (spilled rows and
+        # fresh destinations are outside in_win / staying / the band)
+        stay_all = (lx1 >= float(halo_w)) & (lx1 < float(halo_w + slab))
+        loc_all = torch.cat([lx1[:, None], ly1_wrapped], dim=1)
+        mask_e = (in_win & alive & stay_all & ~(go_left | go_right)
+                  & near_band_mask(loc_all, tile_id, pseudo_shape, tiling,
+                                   eager_keep))
+        n_band = mask_e.sum()
+        idx_e = spill_rows(mask_e, n_band, eager_cap, n_tot)[0]
+        ok_e = idx_e < n_tot
+        at_e = torch.clamp(idx_e, max=n_tot - 1)
+        new_te = tid_fn(loc_all[at_e], pseudo_shape, tiling)
+    dest, placed, free_idx, free_cnt, nun = allocate_slots(
+        free_idx, free_cnt, idx, req, new_t, old_t, n_tot, n_tiles)
+    (x1, velocity), alive = relocate((x1, velocity), alive, idx, dest,
+                                     placed, (x1[at], velocity[at]), n_tot)
+    # relocated rows leaving TRAILING slots free them to the spare stack
+    # (allocate_slots pushes only tile-segment slots)
+    spare_idx, spare_cnt = push_slots(spare_idx, spare_cnt, idx,
+                                      torch.zeros_like(old_t),
+                                      placed & (old_t >= n_tiles))
+    unplaced = unplaced + nun
+    if eager_keep:
+        # band rows are in their window (never trailing): their freed
+        # slots all go back through the tile stacks
+        dest_e, placed_e, free_idx, free_cnt, nun_e = allocate_slots(
+            free_idx, free_cnt, idx_e, ok_e, new_te, tile_id[at_e], n_tot,
+            n_tiles)
+        (x1, velocity), alive = relocate(
+            (x1, velocity), alive, idx_e, dest_e, placed_e,
+            (x1[at_e], velocity[at_e]), n_tot)
+        unplaced = unplaced + nun_e + torch.clamp(n_band - eager_cap, min=0)
+    if n_shards > 1:
+        res = migration.migrate_ring_stacked(
+            (x1, velocity), alive, go_left, go_right, group,
+            migration_buffer, tile_id, n_tiles, arrival_tiles_fn, free_idx,
+            free_cnt, spare_idx, spare_cnt)
+        x1, velocity = res.arrays
+        alive = res.alive
+        overflow = overflow + res.overflow
+        free_idx, free_cnt = res.free_idx, res.free_cnt
+        spare_idx, spare_cnt = res.spare_idx, res.spare_cnt
+    return (x1, velocity, alive, free_idx, free_cnt, spare_idx, spare_cnt,
+            unplaced, overflow)
+
+
+def init_spare_list(tile_id: torch.Tensor, valid: torch.Tensor, n_tiles: int,
+                    block: int, capacity: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The spare stack over the TRAILING dead region (rows with
+    ``tile_id == n_tiles``) of a fresh layout, as a range.  Returns
+    ``(spare_idx (1, capacity), spare_cnt (1,))``, int64."""
+    n = tile_id.shape[0]
+    dev = tile_id.device
+    blk_tile = tile_id[::block].to(torch.int64).contiguous()
+    start = torch.searchsorted(
+        blk_tile, torch.tensor([n_tiles], device=dev)) * block
+    # the trailing region is dead by construction; `valid` guards a
+    # layout that is not fresh from handing out live rows
+    k = torch.arange(capacity, device=dev)
+    idx = start + k
+    ok = (idx < n) & ~valid[torch.clamp(idx, max=n - 1)]
+    cnt = ok.sum(dim=0, keepdim=True)
+    # dead rows run contiguously from `start`, so the first `cnt` are the
+    # usable ones
+    return torch.where(k < cnt, idx, n)[None, :], cnt
+
+
+def make_sharded_free_init(tiling, pseudo_shape, block: int,
+                           free_slots: int, spare_slots: int):
+    """The per-shard stack builder of the sharded repair models: a
+    function ``(tile_id, alive) -> (free_idx, free_cnt, spare_idx,
+    spare_cnt)`` on one rank's layout."""
+    n_tiles = math.prod(tiling.n_tiles(pseudo_shape))
+
+    def local_init(tile_id, alive):
+        fidx, fcnt = init_free_list(tile_id, alive, n_tiles, block,
+                                    free_slots)
+        sidx, scnt = init_spare_list(tile_id, alive, n_tiles, block,
+                                     spare_slots)
+        return fidx, fcnt, sidx, scnt
+
+    return local_init
 
 
 def drain_check(state, unplaced_seen: int, overflow_seen: int,

@@ -21,3 +21,13 @@ def substep_uniforms(generator: torch.Generator, n_particles: int,
     """
     return torch.rand((n_particles, 4), generator=generator,
                       dtype=torch.float32, device=device)
+
+
+def step_uniforms(generator: torch.Generator, n_particles: int,
+                  device) -> torch.Tensor:
+    """Both half-steps' uniforms from one draw: (2, N, 4) f32 U(0, 1),
+    ``[0]`` for the first substep and ``[1]`` for the second (the
+    reference's rand_B/rand_A order, empic.js:1436-1469).  The same
+    distribution as two ``substep_uniforms`` calls."""
+    return torch.rand((2, n_particles, 4), generator=generator,
+                      dtype=torch.float32, device=device)

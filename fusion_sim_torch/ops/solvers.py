@@ -1,5 +1,4 @@
-"""Linear and spectral solvers (port of ``fusion_sim_tpu/ops/solvers.py``
-but for the sharded spectral solve).
+"""Linear and spectral solvers (port of ``fusion_sim_tpu/ops/solvers.py``).
 
 * ``weighted_jacobi`` / ``SORIterative`` / ``make_sor_iterative`` — the
   reference's iterative solver (``makeSORIterative``,
@@ -13,9 +12,13 @@ but for the sharded spectral solve).
 * ``conjugate_gradient`` — dense-SPD CG, one host read of ``|r|`` an
   iteration.
 * ``poisson_fft`` — the field solve of the ES PIC loop; on the card
-  ``torch.fft`` runs it through cuFFT.  ``poisson_dft2d`` (the reference's
-  dense-DFT matmul form, a workaround for the TPU's emulated FFT) is kept
-  only so the tests can hold both forms against each other.
+  ``torch.fft`` runs it through cuFFT.  ``poisson_dft2d`` is the
+  reference's dense-DFT matmul form (a workaround for the TPU's emulated
+  FFT); the sharded ES model keeps it on its gathered-DFT route, as the
+  reference does.
+* ``poisson_fft_sharded`` — the pencil-decomposed spectral solve of an
+  x-slab-decomposed grid, one rank a slab, with ``all_to_all`` transposes
+  over a process group.
 
 Every product runs in f32 with TF32 off (``precision.f32_matmul``), as
 the reference computes it.
@@ -259,6 +262,24 @@ def poisson_fft(rho: torch.Tensor, dx: tuple[float, ...],
     return torch.fft.irfftn(phi_k, s=rho.shape)
 
 
+@functools.lru_cache(maxsize=8)
+def _dft2d_tables(nx: int, ny: int, dx: tuple[float, float], eps0: float,
+                  dtype: torch.dtype, device: torch.device):
+    """The DFT matrices of both axes and 1/(eps0 |k|^2) / (nx ny), made once
+    a grid (the sharded model solves every step); callers never write to
+    them."""
+    def cs(n):
+        j = torch.arange(n, dtype=dtype, device=device)
+        th = (2.0 * math.pi / n) * torch.outer(j, j)
+        return torch.cos(th), torch.sin(th)
+
+    kx = 2 * math.pi * torch.fft.fftfreq(nx, d=dx[0], device=device)
+    ky = 2 * math.pi * torch.fft.fftfreq(ny, d=dx[1], device=device)
+    ksq = kx[:, None] ** 2 + ky[None, :] ** 2
+    inv = torch.where(ksq > 0, 1.0 / (eps0 * ksq), 0.0) / (nx * ny)
+    return (*cs(nx), *cs(ny), inv)
+
+
 def poisson_dft2d(rho: torch.Tensor, dx: tuple[float, float],
                   eps0: float = 1.0, precision: str = "highest"
                   ) -> torch.Tensor:
@@ -271,19 +292,8 @@ def poisson_dft2d(rho: torch.Tensor, dx: tuple[float, float],
 
     dtype = resolve_precision(precision)
     nx, ny = rho.shape
-    dev = rho.device
-
-    def cs(n):
-        j = torch.arange(n, dtype=dtype, device=dev)
-        th = (2.0 * math.pi / n) * torch.outer(j, j)
-        return torch.cos(th), torch.sin(th)
-
-    cx, sx = cs(nx)
-    cy, sy = cs(ny)
-    kx = 2 * math.pi * torch.fft.fftfreq(nx, d=dx[0], device=dev)
-    ky = 2 * math.pi * torch.fft.fftfreq(ny, d=dx[1], device=dev)
-    ksq = kx[:, None] ** 2 + ky[None, :] ** 2
-    inv = torch.where(ksq > 0, 1.0 / (eps0 * ksq), 0.0) / (nx * ny)
+    cx, sx, cy, sy, inv = _dft2d_tables(
+        nx, ny, tuple(float(d) for d in dx), float(eps0), dtype, rho.device)
     rho = rho.to(dtype)
     a_r = cx @ rho                      # forward x: A = (C - iS) rho
     a_i = -(sx @ rho)
@@ -302,3 +312,80 @@ def gradient_periodic(phi: torch.Tensor, dx: tuple[float, ...]
     return tuple(
         (torch.roll(phi, -1, axis) - torch.roll(phi, 1, axis)) / (2.0 * d)
         for axis, d in enumerate(dx))
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    """The reference's tiled ``lax.all_to_all``: ``x`` splits into one
+    block a rank along ``split_axis``, block j goes to rank j, and the
+    blocks received are stacked in rank order along ``concat_axis``.  One
+    ``all_to_all_single`` on a contiguous copy with the split axis first
+    (complex values travel as their float pairs)."""
+    import torch.distributed as dist
+
+    s = dist.get_world_size(group)
+    shape = list(x.shape)
+    blocks = x.reshape(shape[:split_axis] + [s, shape[split_axis] // s]
+                       + shape[split_axis + 1:]).movedim(split_axis, 0)
+    send = torch.view_as_real(blocks.contiguous()) if x.is_complex() \
+        else blocks.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if x.is_complex():
+        recv = torch.view_as_complex(recv)
+    out = recv.movedim(0, concat_axis)      # rank blocks next to the axis
+    shape = list(out.shape)
+    return out.reshape(shape[:concat_axis]
+                       + [shape[concat_axis] * shape[concat_axis + 1]]
+                       + shape[concat_axis + 2:])
+
+
+def poisson_fft_sharded(rho_local: torch.Tensor, full_shape: tuple[int, ...],
+                        dx: tuple[float, ...], group,
+                        eps0: float = 1.0) -> torch.Tensor:
+    """Distributed spectral Poisson solve of an x-slab-decomposed periodic
+    grid: ``rho_local`` is this rank's (nx/S, *rest) slab, ``group`` the
+    ring's process group (or a 1D ``DeviceMesh``, or None for the world).
+
+        1. FFT along the local axes 1..d-1;
+        2. all_to_all: x-slabs -> axis-1 pencils;
+        3. FFT along x (now local);
+        4. multiply by this pencil's inverse Laplacian (k = 0 zeroed: the
+           mean of phi is gauge);
+        5. the inverse steps in reverse order.
+
+    Needs full_shape[0] and full_shape[1] divisible by the ranks.  Returns
+    this rank's phi slab, real f32."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import axis_group
+
+    group = axis_group(group)
+    s = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    nx, rest = full_shape[0], tuple(full_shape[1:])
+    if rest[0] % s:
+        raise ValueError(f"axis-1 size {rest[0]} not divisible by {s} "
+                         f"shards")
+    if nx % s or tuple(rho_local.shape) != (nx // s,) + rest:
+        raise ValueError(f"local slab {tuple(rho_local.shape)} of "
+                         f"{tuple(full_shape)} on {s} shards")
+    dev = rho_local.device
+    rest_axes = tuple(range(1, len(full_shape)))
+    rk = torch.fft.fftn(rho_local.to(torch.complex64), dim=rest_axes)
+    rk = _all_to_all(rk, group, split_axis=1, concat_axis=0)
+    rk = torch.fft.fft(rk, dim=0)
+
+    def k(n, d):
+        return 2 * math.pi * torch.fft.fftfreq(n, d=float(d), device=dev)
+
+    m = rest[0] // s
+    ksq = k(nx, dx[0])[:, None] ** 2 + (k(rest[0], dx[1])[me * m:
+                                                          (me + 1) * m]
+                                         ** 2)[None, :]
+    for a in range(2, len(full_shape)):
+        ksq = ksq[..., None] + (k(full_shape[a], dx[a]) ** 2)[(None,) * a]
+    inv = torch.where(ksq > 0, 1.0 / (eps0 * ksq), 0.0)
+    pk = torch.fft.ifft(rk * inv, dim=0)
+    pk = _all_to_all(pk, group, split_axis=0, concat_axis=1)
+    return torch.fft.ifftn(pk, dim=rest_axes).real.to(torch.float32)

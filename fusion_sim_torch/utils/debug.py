@@ -6,10 +6,14 @@ and f32 overflow.
 * ``debug_nans()`` — a scope in which the first operation whose float
   output holds a NaN raises ``FloatingPointError`` naming the operation
   (the reference's ``jax_debug_nans``), through a ``TorchDispatchMode``.
-* ``checked(fn)`` — ``wrapped(*args) -> (err, out)``: ``fn`` runs to its
-  end, ``err`` names the first NaN-producing operation and ``err.throw()``
-  raises it (the reference's ``checkify`` wrapper; an out-of-bounds index
-  raises in PyTorch itself).
+* ``checked(fn, errors=None)`` — ``wrapped(*args) -> (err, out)``: ``fn``
+  runs to its end, ``err`` names the first NaN-producing operation and
+  ``err.throw()`` raises it (the reference's ``checkify`` wrapper).
+  ``errors`` takes the names of checkify's sets (``nan_checks``,
+  ``div_checks``, ``index_checks``, ``float_checks``, ``all_checks`` here);
+  only the NaN check is carried out.  A division by zero gives an inf,
+  which it does not see, and an out-of-bounds index raises in PyTorch
+  itself.
 * ``assert_finite(tree, name)`` — finiteness sweep of dicts, NamedTuples
   and sequences of tensors or arrays, naming the offending leaf's path.
 
@@ -95,11 +99,32 @@ class CheckError:
             raise FloatingPointError(self.message)
 
 
-def checked(fn):
+# checkify's error sets, by name
+nan_checks = frozenset({"nan"})
+div_checks = frozenset({"div"})
+index_checks = frozenset({"index"})
+user_checks = frozenset({"user"})
+float_checks = nan_checks | div_checks
+all_checks = float_checks | index_checks | user_checks
+
+
+def checked(fn, errors=None):
     """Wrap ``fn``: ``wrapped(*args, **kwargs) -> (err, out)``; call
-    ``err.throw()`` to raise on the first NaN an operation produced."""
+    ``err.throw()`` to raise on the first NaN an operation produced.
+
+    ``errors`` (default ``float_checks | index_checks``, the reference's)
+    is a set of the names above; the NaN check runs when it holds
+    ``'nan'``, and the other names are accepted but check nothing."""
+    errors = float_checks | index_checks if errors is None \
+        else frozenset(errors)
+    unknown = errors - all_checks
+    if unknown:
+        raise ValueError(f"unknown error checks {sorted(unknown)}")
+    nan = "nan" in errors
 
     def wrapped(*args, **kwargs):
+        if not nan:
+            return CheckError(None), fn(*args, **kwargs)
         mode = _NanMode(raise_first=False)
         with mode:
             out = fn(*args, **kwargs)

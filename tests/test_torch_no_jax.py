@@ -40,6 +40,17 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_guard_covers_the_sharded_modules():
+    """The parametrization above picks up every port source by itself,
+    ``parallel/`` and the sharded ES model among them."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for module in ("parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/halo.py", "parallel/migration.py",
+                   "parallel/sharding.py",
+                   "models/electrostatic_sharded.py"):
+        assert f"fusion_sim_torch/{module}" in names, module
+
+
 def test_guard_sees_a_forbidden_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import numpy\nfrom jax import numpy as jnp\n"
@@ -127,6 +138,17 @@ def test_default_device_is_cuda():
             lambda: SORIterative(1),
             lambda: SimulationService(),
             lambda: serve(port=0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    # this slice's entry points: the world of one, the sharded ES model
+    from fusion_sim_torch.models import electrostatic_sharded as shd
+    from fusion_sim_torch.parallel.mesh import make_mesh
+    sharded = shd.ShardedESConfig(base=config, n_shards=1, capacity=512,
+                                  migration_buffer=64, tiling=tiling,
+                                  backend="pallas")
+    for build in (lambda: make_mesh(1, ("space",)),
+                  lambda: shd.ShardedElectrostaticPIC(sharded, None, pos,
+                                                      0 * pos)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
     assert resolve_device("cpu").type == "cpu"

@@ -517,3 +517,118 @@ def test_pusher_repair_matches_reference_row_for_row(backend):
     assert int(st.unplaced) <= max(1, st.spill)
     port.disable_sorted_path()
     assert port.state.position.shape == (n, 3)
+
+
+# -- the sharded repair functions ------------------------------------------------
+
+def test_init_spare_list_and_sharded_free_init_match_reference():
+    """The spare stack over a fresh layout's trailing dead region, and the
+    per-shard builder of both stacks, row for row on the reference's own
+    layouts (half the rows invalid, so the trailing region is long; with
+    capacities both under and over its length)."""
+    rng = np.random.default_rng(1)
+    n, cells = 512, 16
+    jt = jsd.Tiling2D(tile_r=8, tile_z=8, block=128, margin=2)
+    tt = tsd.Tiling2D(tile_r=8, tile_z=8, block=128, margin=2)
+    pos = jnp.asarray(rng.random((n, 2)) * cells, jnp.float32)
+    for valid_in in (jnp.arange(n) % 2 == 0, jnp.arange(n) % 5 != 0):
+        tid, _, valid, _ = jsd.build_padded_layout(
+            pos, (cells, cells), jt, valid=valid_in, reserve=True,
+            derive_valid=True)
+        t_tid = torch.tensor(np.asarray(tid))
+        t_valid = torch.tensor(np.asarray(valid))
+        for cap in (8, 64, 1024):
+            want = jr.init_spare_list(tid, valid, 4, 128, cap)
+            got = tr.init_spare_list(t_tid, t_valid, 4, 128, cap)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(_np(g), _np(w))
+            tid_np = np.asarray(tid)
+            sidx, scnt = _np(got[0]), int(_np(got[1])[0])
+            assert scnt == min(int((tid_np == 4).sum()), cap)
+            assert np.all(tid_np[sidx[0, :scnt]] == 4)
+        want = jr.make_sharded_free_init(jt, (cells, cells), 128, 16, 32)(
+            tid, valid)
+        got = tr.make_sharded_free_init(tt, (cells, cells), 128, 16, 32)(
+            t_tid, t_valid)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_np(g), _np(w))
+
+
+def _stacked_migration_inputs():
+    """tests/test_repair.py::test_migrate_ring_stacked_seat_spare_drop's
+    two shards: shard 0 sends rows 2, 3, 4 right (row 4 from the trailing
+    region); shard 1 has one slot in tile 0 and one spare slot, and every
+    arrival is bound for tile 0."""
+    pos = np.asarray(
+        [[1.0, 0], [2.0, 0], [3.0, 0], [4.0, 0], [5.0, 0], [0, 0], [0, 0],
+         [0, 0]] + [[9.0, 0]] + [[0, 0]] * 7, np.float32)
+    alive = np.asarray([True] * 5 + [False] * 3 + [True] + [False] * 7)
+    go_r = np.asarray([False, False, True, True, True] + [False] * 11)
+    return dict(pos=pos, alive=alive, go_r=go_r, go_l=np.zeros(16, bool),
+                tile_id=np.asarray([0, 0, 1, 1, 2, 2, 2, 2] * 2, np.int32),
+                n_tiles=2, free_idx=np.asarray([[[1, 8], [8, 8]]] * 2),
+                free_cnt=np.asarray([[1, 0]] * 2),
+                spare_idx=np.asarray([[[4]]] * 2),
+                spare_cnt=np.asarray([[1]] * 2))
+
+
+def test_migrate_ring_stacked_seat_spare_drop_matches_reference(
+        tmp_path):
+    """Arrivals seat in their tile's stack first, then in the spare stack,
+    and are dropped (counted in overflow) only when both are empty; the
+    leavers' slots go back on their stacks (a push past a stack's capacity
+    leaks).  A gloo world of two ranks against the reference's mesh of
+    two, every output of each shard exactly."""
+    import jax
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from fusion_sim_tpu.parallel.mesh import make_mesh
+    from fusion_sim_tpu.parallel.migration import migrate_ring_stacked
+    from torch_ranks import run_world, stacked_migration_body
+
+    inp = _stacked_migration_inputs()
+    ranks = run_world(2, stacked_migration_body, inp, tmp_path)
+
+    def local(pos, alive, go_l, go_r, tid, fidx, fcnt, sidx, scnt):
+        res = migrate_ring_stacked(
+            (pos, jnp.zeros_like(pos)), alive, go_l, go_r, "space", 4, tid,
+            inp["n_tiles"],
+            lambda arrs: jnp.zeros((arrs[0].shape[0],), jnp.int32),
+            fidx, fcnt, sidx, scnt)
+        one = (lambda x: jnp.broadcast_to(x, (1,)))
+        return (res.arrays[0], res.alive, one(res.overflow), res.free_idx,
+                res.free_cnt, res.spare_idx, res.spare_cnt,
+                one(res.placed_tile), one(res.placed_spare))
+
+    p2, p1 = P("space", None), P("space")
+    out = jax.jit(shard_map(
+        local, mesh=make_mesh(2, ("space",)),
+        in_specs=(p2, p1, p1, p1, p1, p2, p1, p2, p1),
+        out_specs=(p2, p1, p1, p2, p1, p2, p1, p1, p1)))(
+        jnp.asarray(inp["pos"]), jnp.asarray(inp["alive"]),
+        jnp.asarray(inp["go_l"]), jnp.asarray(inp["go_r"]),
+        jnp.asarray(inp["tile_id"]),
+        jnp.asarray(inp["free_idx"].reshape(4, 2), jnp.int32),
+        jnp.asarray(inp["free_cnt"].reshape(-1), jnp.int32),
+        jnp.asarray(inp["spare_idx"].reshape(2, 1), jnp.int32),
+        jnp.asarray(inp["spare_cnt"].reshape(-1), jnp.int32))
+    want = dict(zip(("pos", "alive", "overflow", "free_idx", "free_cnt",
+                     "spare_idx", "spare_cnt", "placed_tile",
+                     "placed_spare"), (np.asarray(o) for o in out)))
+    rows = {"pos": 8, "alive": 8, "free_idx": 2, "free_cnt": 2,
+            "spare_idx": 1, "spare_cnt": 1}
+    for s, got in enumerate(ranks):
+        for key, w in want.items():
+            k = rows.get(key, 1)
+            np.testing.assert_array_equal(
+                np.asarray(got[key]).reshape(w[s * k:(s + 1) * k].shape),
+                w[s * k:(s + 1) * k], err_msg=f"shard {s} {key}")
+    # the reference test's story, on the port's own outputs
+    assert [r["overflow"] for r in ranks] == [0, 1]
+    assert ranks[1]["placed_tile"] == 1 and ranks[1]["placed_spare"] == 1
+    assert ranks[1]["alive"][1] and ranks[1]["alive"][4]
+    assert {ranks[1]["pos"][1, 0], ranks[1]["pos"][4, 0]} <= {3.0, 4.0, 5.0}
+    assert ranks[0]["free_cnt"][1] == 2          # rows 2, 3 back on tile 1
+    assert ranks[0]["spare_cnt"][0] == 1         # row 4's push leaked
+    assert ranks[1]["spare_cnt"][0] == 0         # the spare slot was used
