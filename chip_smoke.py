@@ -148,8 +148,12 @@ Phases 4-11 build their sims through the port's bench and example builders
                bench_em_fused (fused and pallas), bench_pusher (fused and
                pallas) and bench_3d (es, em) with ``--steps 2``,
                drift_control f32 and f64 (300 steps), bench_slab_capacity
-               (124,999,680 particles, peak memory printed); no row
-               dropped, each path's kernels launched;
+               (124,999,680 particles, peak memory printed), and
+               bench_sharded_1chip (--model em in 2D and 3D, --mesh2d for
+               ES and EM; the sharded and single-device steps and their
+               ratio, no overflow, drops printed) and bench_weak_scaling
+               --devices 1, each with --steps 2; no row dropped on the
+               single-device benches, each path's kernels launched;
 15. sharded  — ``ShardedElectrostaticPIC(backend='pallas')`` in a world of
                one (NCCL, started by ``parallel.mesh.make_mesh``) at the ES
                half of the reference's one-chip sharded bench: 2D at
@@ -172,14 +176,36 @@ Phases 4-11 build their sims through the port's bench and example builders
                rung's unplaced rows, the kernel's
                launches and ms, the ratio to the single-device fused step,
                the step's pieces (frame shift, solve, kernel, spill mask,
-               wrap back) in ms and one profiled window; then the total
-               time.
+               wrap back) in ms and one profiled window;
+16. sharded EM and two-axis — in a world of one again, the EM half and
+               the --mesh2d forms of the reference's one-chip sharded
+               bench, built by ``examples/bench_sharded_1chip.build_sim``:
+               ``ShardedElectromagneticPIC(gather_backend='fused')`` at
+               10,002,432 particles on 512^2 (B4, resort 12), its repair
+               form (resort 1e9) and 29,997,056 on 128^3 (B6, resort 6);
+               ``ShardedElectrostaticPIC2D(backend='pallas')`` and
+               ``ShardedElectromagneticPIC2D(gather_backend='fused')`` on a
+               (1, 1) mesh in 2D (B1, B4) and 3D (B5, B6).  Each holds its
+               kernel bit for bit (the deposit within 1e-5 of its max)
+               against the plain version on the shard's pseudo-grid
+               inputs; the 2D runs and the EM slab 3D run hold 4 steps
+               against the single-device fused model (EM: the first
+               step's J within 1e-4 of its max from positions the shard's
+               frame holds exactly, then kinetic and field energy within
+               1e-5 and sorted positions within 1e-3 of a cell; ES as
+               phase 15), the two-axis 3D runs take 2 steps on their
+               invariants; every run needs no overflow and a move under
+               the halo's bound, and prints steps/s and ms a step of both
+               models and their ratio, the drops (and unplaced rows), the
+               kernel's launches and ms against its bound and one profiled
+               window's device busy share; then the total time.
 
 The line before the last lists the kernels as JSON (B3 once a form: the
 pusher's nearest C = 12 and C = 1, the EM route's cic C = 6; X1 with its
 sweep's launches and the numbers of its lhs_k_lanes / highest / K = 128
-variant; B1 and B5 again for each run of phase 15); the last line is the
-result: ``{"ok": true, "device": {...}}``.
+variant; B1 and B5 again for each run of phase 15, and B1, B4, B5 and B6
+for each run of phase 16); the last line is the result: ``{"ok": true,
+"device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -2400,7 +2426,9 @@ def phase14_examples(torch, smi, kernel_modules):
 
     from fusion_sim_torch.examples import (bench_3d, bench_em_fused,
                                            bench_es_fused, bench_pusher,
+                                           bench_sharded_1chip,
                                            bench_slab_capacity,
+                                           bench_weak_scaling,
                                            default_scenario, drift_control,
                                            two_stream, weibel)
     from fusion_sim_torch.utils.png import decode_png
@@ -2442,6 +2470,20 @@ def phase14_examples(torch, smi, kernel_modules):
                 f"{total:.2f} GB; {res['dropped']} deposits dropped over "
                 f"{res['steps']} steps (not exact)")
 
+    def check_sharded(res, out):
+        # the sharded rungs' drops are the reference's configuration's
+        # (phase 15): shown, not gated
+        need(res["overflow"] == 0 and math.isfinite(res["ratio"]),
+             f"sharded {res}")
+        return (f"{res['ms']:.3f} ms/step against {res['single_ms']:.3f} "
+                f"single-device, ratio {res['ratio']:.3f}x; dropped "
+                f"{res['dropped']} (single-device {res['single_dropped']})")
+
+    def check_weak(res, out):
+        need(len(res) == 3 and all(math.isfinite(r[2]) for r in res),
+             f"weak scaling rows {res}")
+        return ", ".join(f"{r[0]} {r[2]:.3f} ms/step" for r in res)
+
     steps = ["--steps", "2"]
     runs = (
         ("two_stream", two_stream.main, [], check_two_stream, ()),
@@ -2468,6 +2510,19 @@ def phase14_examples(torch, smi, kernel_modules):
          check_dropped, ()),
         ("bench_slab_capacity", bench_slab_capacity.main, [], check_slab,
          ("fused_pic3d",)),
+        ("bench_sharded_1chip em 2D", bench_sharded_1chip.main,
+         steps + ["--model", "em"], check_sharded, ("fused_em",)),
+        ("bench_sharded_1chip em 3D", bench_sharded_1chip.main,
+         steps + ["--model", "em", "--dim", "3"], check_sharded,
+         ("fused_em3d",)),
+        ("bench_sharded_1chip es --mesh2d", bench_sharded_1chip.main,
+         steps + ["--model", "es", "--mesh2d"], check_sharded,
+         ("fused_pic",)),
+        ("bench_sharded_1chip em --mesh2d", bench_sharded_1chip.main,
+         steps + ["--model", "em", "--mesh2d"], check_sharded,
+         ("fused_em",)),
+        ("bench_weak_scaling --devices 1", bench_weak_scaling.main,
+         steps + ["--devices", "1"], check_weak, ()),
     )
     launches_by_run = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2536,41 +2591,57 @@ def sharded_es_rung(es, shd, Tiling2D, Tiling3D, ndim: int, repair: bool):
     return cfg, pos, vel, single_kw, (117 if repair else 0)
 
 
-def sharded_vs_single(torch, label, cfg, sim, single, steps: int):
-    """A few steps of the sharded model against the single-device fused
-    model from the same positions: the kinetic energy within 1e-5, the
-    live rows' sorted positions within 1e-3 of a cell (the card-vs-CPU
-    checks' bar; the layouts differ, so no row-for-row compare) and the
-    folded rho (the whole grid at one shard) within 1e-4 of its max.  The
-    shard works in its pseudo-grid frame, x + halo_w rounded to f32 each
-    step, so its rows drift from the single-device model's by ulps of
-    x + halo_w (up to ~1.6e-4 cells after 4 steps at 512^2): rho is held
-    at 1e-5 against the shard's own deposit in its frame instead (the
-    kernel's deposit, the patch and the apron fold, up to summation
-    order)."""
-    for _ in range(steps):
+def hold_steps(torch, label, sim, single, steps: int, check,
+               may_drop: bool = False, before_step=None) -> str:
+    """Step a sharded model and the single-device model one step at a time
+    from the same positions, up to ``steps``, then hold them once with
+    ``check(k)`` (it raises AssertionError where they disagree; returns
+    its report).  A step in which either model drops a deposit (a row past
+    the spill capacity: not exact) fails the hold; with ``may_drop`` (a
+    rung that drops by its configuration's design) the hold ends at the
+    step before it instead, whose states are held (the models step
+    functionally, so the kept states stay as they were), and the report
+    says so.  ``before_step(k)`` runs before step k where given."""
+    def dropped(m):
+        return int(torch.as_tensor(m.state.spill_dropped).sum())
+
+    held, kept = 0, None
+    for k in range(1, steps + 1):
+        if before_step is not None:
+            before_step(k)
+        prev = (sim.state, single.state)
+        before = (dropped(sim), dropped(single))
         sim.step(1)
         single.step(1)
-    st, ss = sim.state, single.state
-    seed = sim._seed_rho(st)
-    own_err = float((st.rho - seed).abs().max()) / float(seed.abs().max())
-    if not own_err <= 1e-5:
-        raise AssertionError(f"{label}: carried rho vs its own deposit "
-                             f"{own_err} of its max")
-    rho_err = float((st.rho - ss.rho).abs().max()) / float(
-        ss.rho.abs().max())
-    if not rho_err <= 1e-4:
-        raise AssertionError(f"{label}: rho {rho_err} of its max against "
-                             f"the single-device model")
-    mass = cfg.base.mass
+        if (dropped(sim), dropped(single)) != before:
+            drop = (f"step {k} dropped deposits (sharded {dropped(sim)}, "
+                    f"single-device {dropped(single)})")
+            if not may_drop or k == 1:
+                raise AssertionError(f"{label}: {drop} inside the hold")
+            kept = prev
+            break
+        held = k
+    if kept is None:
+        return check(held)
+    now = (sim.state, single.state)
+    sim.state, single.state = kept
+    try:
+        report = check(held)
+    finally:
+        sim.state, single.state = now
+    return f"{report}; {drop}, so the hold ends at {held}"
 
-    def kinetic(v, live):
-        return 0.5 * mass * float(
-            (torch.where(live[:, None], v, 0.0).double() ** 2).sum())
-    ke_s, ke_1 = kinetic(st.velocity, st.alive), kinetic(ss.velocity,
-                                                         ss.valid)
-    if not math.isclose(ke_s, ke_1, rel_tol=1e-5):
-        raise AssertionError(f"{label}: kinetic {ke_s} vs {ke_1}")
+
+def sorted_positions_within(torch, label, cfg, st, ss) -> float:
+    """The live rows' sorted positions of two models, axis by axis (the
+    layouts differ, so no row-for-row compare), within 1e-3 of a cell.
+    The axes are periodic: a row within an ulp of the period's end may sit
+    at n - eps in one model and at 0 in the other, which shifts one sorted
+    column against the other by a place (and reads the largest gap between
+    neighbouring rows, ~8e-4 cells at 10 M rows on 512 cells, as a
+    difference); the sorted columns are compared at the cyclic shift of
+    up to two places that aligns them best, the wrapped rows moved by the
+    period."""
     grid = torch.tensor(cfg.base.grid_shape, dtype=torch.float32,
                         device=st.position.device)
     ps = torch.remainder(st.position[st.alive], grid)
@@ -2578,16 +2649,74 @@ def sharded_vs_single(torch, label, cfg, sim, single, steps: int):
     if ps.shape != p1.shape:
         raise AssertionError(f"{label}: {ps.shape[0]} live rows against "
                              f"{p1.shape[0]}")
-    dmax = max(float((torch.sort(ps[:, a]).values
-                      - torch.sort(p1[:, a]).values).abs().max())
-               for a in range(ps.shape[1]))
+    dmax = 0.0
+    for a, n in enumerate(cfg.base.grid_shape):
+        x, y = torch.sort(ps[:, a]).values, torch.sort(p1[:, a]).values
+        best = float("inf")
+        for k in range(-2, 3):
+            # y shifted k places round the period
+            if k > 0:
+                z = torch.cat([y[-k:] - n, y[:-k]])
+            elif k < 0:
+                z = torch.cat([y[-k:], y[:-k] + n])
+            else:
+                z = y
+            best = min(best, float((x - z).abs().max()))
+        dmax = max(dmax, best)
     if dmax > 1e-3:
         raise AssertionError(f"{label}: sorted positions differ by {dmax}")
-    return (f"carried rho within {own_err:.3g} of its max against the "
-            f"shard's own deposit; {steps} steps against "
-            f"SortedElectrostaticPIC(backend='pallas'): rho within "
-            f"{rho_err:.3g} of its max, kinetic {ke_s:.9g} / {ke_1:.9g}, "
-            f"sorted positions within {dmax:.3g}")
+    return dmax
+
+
+def sharded_vs_single(torch, label, cfg, sim, single, steps: int,
+                      own_tol: float = 1e-5, may_drop: bool = False):
+    """``steps`` steps of the sharded ES model against the single-device
+    fused model from the same positions (``hold_steps``), held at the
+    last: the kinetic energy within 1e-5, the sorted positions within 1e-3
+    of a cell (the card-vs-CPU checks' bar) and the folded rho (the whole
+    grid at one shard) within 1e-4 of its max.  The shard works in its
+    pseudo-grid frame, x + halo_w rounded to f32 each step, so its rows
+    drift from the single-device model's by ulps of x + halo_w (up to
+    ~1.6e-4 cells after 4 steps at 512^2): rho is held at ``own_tol``
+    against the shard's own deposit in its frame too (the kernel's
+    deposit, the patch and the apron fold, up to summation order and the
+    rounding of the stored positions).  The report gives one row's
+    deposit beside it, the least a lost or doubled deposit would show."""
+    mass = cfg.base.mass
+
+    def kinetic(v, live):
+        return 0.5 * mass * float(
+            (torch.where(live[:, None], v, 0.0).double() ** 2).sum())
+
+    def check(k):
+        st, ss = sim.state, single.state
+        seed = sim._seed_rho(st)
+        scale = float(seed.abs().max())
+        own_err = float((st.rho - seed).abs().max()) / scale
+        one_row = abs(cfg.base.charge) / cfg.base.cell_volume / scale
+        if not own_err <= own_tol:
+            raise AssertionError(f"{label}: step {k}: carried rho vs its "
+                                 f"own deposit {own_err} of its max (limit "
+                                 f"{own_tol:g})")
+        rho_err = float((st.rho - ss.rho).abs().max()) / float(
+            ss.rho.abs().max())
+        if not rho_err <= 1e-4:
+            raise AssertionError(f"{label}: step {k}: rho {rho_err} of its "
+                                 f"max against the single-device model")
+        ke_s = kinetic(st.velocity, st.alive)
+        ke_1 = kinetic(ss.velocity, ss.valid)
+        if not math.isclose(ke_s, ke_1, rel_tol=1e-5):
+            raise AssertionError(f"{label}: step {k}: kinetic {ke_s} vs "
+                                 f"{ke_1}")
+        dmax = sorted_positions_within(torch, label, cfg, st, ss)
+        return (f"carried rho within {own_err:.3g} of its max against the "
+                f"shard's own deposit (limit {own_tol:g}; one row's "
+                f"deposit {one_row:.3g}); {k} steps against "
+                f"SortedElectrostaticPIC(backend='pallas'): rho within "
+                f"{rho_err:.3g} of its max, kinetic {ke_s:.9g} / "
+                f"{ke_1:.9g}, sorted positions within {dmax:.3g}")
+
+    return hold_steps(torch, label, sim, single, steps, check, may_drop)
 
 
 def sharded_pieces(torch, shd, sim, single, substep, args) -> str:
@@ -2778,6 +2907,314 @@ def phase15_sharded(torch, es, fp, f3, Tiling2D, Tiling3D, smi,
     return entries
 
 
+# -- 16. the sharded EM model and the two-axis models (kernels B1, B4-B6) ------
+
+# The runs, built by the port's examples/bench_sharded_1chip.build_sim with
+# the reference script's flags (examples/bench_sharded_1chip.py:84-178, the
+# configurations' source; nothing cut): the EM half at 10,002,432 particles
+# on 512^2 (Tiling2D(32, 32, 1024, margin 6), resort 12; repair: resort
+# 1e9) and 29,997,056 on 128^3 (Tiling3D((8, 8, 8), 512, margin 2), resort
+# 6), cells 0.5, dt 0.1, charge -0.01, mass 0.01, centered gather,
+# velocities 0.05 N(0, 1) from seed 0, migration buffer 8,192, capacity
+# (int(1.05 n) // 1024) * 1024 + 1024; the --mesh2d forms on a (1, 1) mesh
+# (the ES ones at phase 15's rungs).  (label, flags, kernel, held against
+# the single-device model)
+SHARDED_RUNS = (
+    ("EM slab 2D", ["--model", "em"], "B4", True),
+    ("EM slab 2D repair", ["--model", "em", "--repair"], "B4", True),
+    ("EM slab 3D", ["--model", "em", "--dim", "3"], "B6", True),
+    ("two-axis ES 2D", ["--model", "es", "--mesh2d"], "B1", True),
+    ("two-axis EM 2D", ["--model", "em", "--mesh2d"], "B4", True),
+    ("two-axis ES 3D", ["--model", "es", "--mesh2d", "--dim", "3"], "B5",
+     False),
+    ("two-axis EM 3D", ["--model", "em", "--mesh2d", "--dim", "3"], "B6",
+     False),
+)
+
+
+def sharded_em_vs_single(torch, em, label, sim, single, steps: int):
+    """``steps`` (at least 3) steps of a sharded EM model against the
+    single-device fused model from the same positions (``hold_steps``):
+    the current J of step 1 (as each model hands it to its Yee update)
+    within 1e-4 of its max, J of step 3 within 1e-4 of its max against a
+    single-device twin seeded from the sharded state, and at the last step
+    kinetic and field energy within 1e-5 and sorted positions within 1e-3
+    of a cell.
+
+    The shard works in its pseudo-grid frame, x + halo_w in f32 (and y +
+    halo_y on the two-axis mesh), and J is a difference of positions
+    (Esirkepov's S(x1) - S(x0) over a drift of ~0.01 cells): a frame
+    rounding of one ulp of x + halo_w (up to 6e-5 cells at 512^2) moves a
+    row's J by up to a few 1e-3, so after the first step the two models'
+    J drift ~1e-4 of max apart with no fault (CPU, 128^2: 1.3e-4 at step
+    2).  Step 1 therefore starts both models from positions the frame
+    holds exactly (each moved by under an ulp to (x + h) - h), on the
+    initial zero E and B.  Step 3 runs on live fields: before it the
+    sharded model is resorted (so no row is patched in the frame) and its
+    positions are made frame-exact, and a single-device twin is built from
+    its live rows, E and B; the step's J then reads the sharded E|B halos,
+    centered table, gather and kick against the twin's periodic ones (CPU,
+    128^2 and 32^3: 1.7e-7 to 2.9e-7 of max sound; 1.5e-2 with the shard's
+    E zeroed on two cells at each x edge, 1.7e-2 with its E and B
+    zeroed; H100, this phase's rungs: 7.7e-8 to 1.5e-6)."""
+    from fusion_sim_torch.models import electromagnetic_sharded as m1
+    from fusion_sim_torch.models import electromagnetic_sharded2d as m2
+
+    two_axis = hasattr(sim, "_m2")
+    mod = m2 if two_axis else m1
+    halos = sim.config.halo_ws if two_axis else (sim.config.halo_w,)
+    base = sim.config.base
+    got = {"sharded": [], "single": [], "twin": []}
+    yee, finish = mod._yee_local, single._finish
+
+    def snap(*states):
+        for st in states:
+            for a, h in enumerate(halos):
+                st.position[:, a] = (st.position[:, a] + h) - h
+
+    def hook(side, fn):
+        # _yee_local(base, e, b, j, groups) and _finish(state, x1,
+        # velocity, j, spill): one call a step, J fourth
+        def call(*a, **kw):
+            got[side].append(a[3].clone())
+            return fn(*a, **kw)
+        return call
+
+    def twin_step(k):
+        if k != 3:
+            return
+        st = sim.state
+        snap(st)
+        # the shell resorts before its next step (and, with repair,
+        # re-inits the free lists)
+        sim._since_sort = sim.config.resort_every
+        live = st.alive
+        twin = type(single)(
+            single.config, st.position[live].cpu().numpy(),
+            st.velocity[live].cpu().numpy(), tiling=single.tiling,
+            resort_every=single.resort_every, gather_backend="fused",
+            repair=single.repair, pallas_precision=single.pallas_precision,
+            check_spill=False, device=single.device)
+        twin.state = twin.state._replace(e=st.e.clone(), b=st.b.clone())
+        twin._finish = hook("twin", twin._finish)
+        twin.step(1)
+
+    def energies(v, live, e, b):
+        kin = 0.5 * base.mass * float(
+            (torch.where(live[:, None], v, 0.0).double() ** 2).sum())
+        mu0 = 1.0 / (base.eps0 * base.c ** 2)
+        field = (0.5 * base.eps0 * float((e.double() ** 2).sum())
+                 + 0.5 / mu0 * float((b.double() ** 2).sum())
+                 ) * base.cell_volume
+        return kin, field
+
+    def check(k):
+        st, ss = sim.state, single.state
+        ke_s, fe_s = energies(st.velocity, st.alive, st.e, st.b)
+        ke_1, fe_1 = energies(ss.velocity, ss.valid, ss.e, ss.b)
+        for name, a, b in (("kinetic", ke_s, ke_1), ("field", fe_s, fe_1)):
+            if not math.isclose(a, b, rel_tol=1e-5):
+                raise AssertionError(f"{label}: step {k}: {name} energy "
+                                     f"{a} vs {b}")
+        dmax = sorted_positions_within(torch, label, sim.config, st, ss)
+        return (f"after {k} steps against SortedElectromagneticPIC("
+                f"gather_backend='fused'): kinetic {ke_s:.9g} / {ke_1:.9g}, "
+                f"field {fe_s:.9g} / {fe_1:.9g}, sorted positions within "
+                f"{dmax:.3g}")
+
+    if steps < 3:
+        raise ValueError(f"{label}: the hold needs 3 steps")
+    snap(sim.state, single.state)
+    mod._yee_local = hook("sharded", yee)
+    single._finish = hook("single", finish)
+    try:
+        report = hold_steps(torch, label, sim, single, steps, check,
+                            before_step=twin_step)
+    finally:
+        mod._yee_local = yee
+        del single._finish
+    errs = []
+    for what, js, j1 in (("step 1's J", got["sharded"][0], got["single"][0]),
+                         ("step 3's J against the twin", got["sharded"][2],
+                          got["twin"][0])):
+        errs.append(float((js - j1).abs().max()) / float(j1.abs().max()))
+        if not errs[-1] <= 1e-4:
+            raise AssertionError(f"{label}: {what} {errs[-1]} of its max")
+    return (f"J within {errs[0]:.3g} of its max at step 1 (frame-exact "
+            f"positions, zero fields) and {errs[1]:.3g} at step 3 against a "
+            f"single-device twin of the resorted shard (live fields); "
+            f"{report}")
+
+
+def halo_bound(cfg, reach: int) -> float:
+    """The cells a step a row may move in a sorted composition: its apron
+    is the halo (the stencil reaches ``reach`` cells), and the migration
+    masks need under half a block on each decomposed axis."""
+    if hasattr(cfg, "halo_ws"):
+        halos = cfg.halo_ws
+        slabs = [s for s, m in zip(cfg.slabs, cfg.mesh_shape) if m > 1]
+    else:
+        halos, slabs = (cfg.halo_w,), [cfg.slab]
+    return min([h - reach for h in halos] + [s / 2 for s in slabs])
+
+
+def phase16_sharded(torch, em, fp, f3, fe, fe3, smi, kernel_modules):
+    """The sharded EM model (slabs, B4 / B6, resort and repair) and the
+    two-axis ES and EM models (B1, B4, B5, B6) in a world of one (NCCL,
+    started by ``make_mesh``) at ``SHARDED_RUNS``' rungs.  Each holds its
+    kernel bit for bit against the plain version on the shard's own
+    pseudo-grid inputs, holds 4 steps against the single-device fused
+    model (runs 1-5; the 3D two-axis runs take 2 steps with the invariants
+    only), needs no overflow and a move under the halo's bound, and prints
+    steps/s, ms a step, device busy, the drops and (repair) unplaced rows,
+    the kernel's launches and ms, and the ratio to the single-device fused
+    step (timed here on the same rung)."""
+    import torch.distributed as dist
+
+    from fusion_sim_torch.examples import bench_sharded_1chip as bsh
+
+    kernels = {
+        "B1": (fp, "es2d", substep_bound_ms, "rho",
+               "fusion_sim_tpu/ops/pallas_pic.py:271"),
+        "B5": (f3, "es3d", es3d_bound_ms, "rho",
+               "fusion_sim_tpu/ops/pallas_pic3d.py:213"),
+        "B4": (fe, "em2d", em_bound_ms, "J",
+               "fusion_sim_tpu/ops/pallas_em.py:256"),
+        "B6": (fe3, "em3d", em3d_bound_ms, "J",
+               "fusion_sim_tpu/ops/pallas_em3d.py:253"),
+    }
+    entries = []
+    for label, flags, kid, held in SHARDED_RUNS:
+        t0 = time.perf_counter()
+        args = bsh.parse_args(flags)
+        sim, _, warmup = bsh.build_sim(args)
+        single, _, _ = bsh.build_sim(args, single=True)
+        torch.cuda.synchronize()
+        cfg = sim.config
+        n = int(sim.state.alive.sum())
+        is_es = args.model == "es"
+        kmod, kname, bound_fn, grid_name, replaces = kernels[kid]
+        substep = getattr(kmod, f"fused_{kname}_substep")
+        plain = getattr(kmod, f"fused_{kname}_substep_plain")
+        log("16 sharded", f"{label}: world of {dist.get_world_size()} "
+                          f"({dist.get_backend()}), set-up "
+                          f"{time.perf_counter() - t0:.2f} s ({n} particles, "
+                          f"pseudo-grid {cfg.pseudo_shape}, "
+                          f"{sim.state.position.shape[0]} shard rows against "
+                          f"{single.state.position.shape[0]} single-device "
+                          f"rows)")
+
+        if held and is_es:
+            # the two-axis frame rounds x and y, so the carried rho's own
+            # deposit reads a little above the slab's: sound H100 readings
+            # 1.02e-5 (step 3) and 1.07e-5 (step 1) of max here, 1.10e-5 on
+            # phase 15's slab at step 2.  One row's deposit is ~1.8e-2 of
+            # max, and a step that dropped deposits read 0.175: the limit,
+            # 2e-5, sits ~2x over the sound readings and ~900x under one
+            # lost row.  The rung drops by its design (the y edge's
+            # crossers keep their tile until the resort): the hold ends
+            # before the first step that drops
+            vs = sharded_vs_single(torch, label, cfg, sim, single, 4,
+                                   own_tol=2e-5, may_drop=True)
+        elif held:
+            vs = sharded_em_vs_single(torch, em, label, sim, single, 4)
+        else:
+            sim.step(2)
+            single.step(2)       # both models warm before the timing
+            vs = "2 steps, invariants only"
+        log("16 sharded", f"{label}: {vs}")
+
+        for _ in range(warmup):
+            sim.step(1)
+            single.step(1)
+        window = cfg.resort_every if cfg.resort_every < 10 ** 6 else 12
+        steps = window * (2 if cfg.base.n_dim == 2 else 1)
+        zero_counts(kernel_modules)
+        rate, ms = timed_steps(torch, sim, steps, window)
+        launches = kmod.LAUNCHES
+        if launches != steps:
+            raise AssertionError(f"{label}: {kid} launches {launches} != "
+                                 f"steps {steps}")
+        rate_1, ms_1 = timed_steps(torch, single, steps, window)
+        st = sim.state
+        inv = sim.check_invariants()
+        if inv["overflow"]:
+            raise AssertionError(f"{label}: overflow {inv['overflow']}")
+        bound_cells = halo_bound(cfg, 1 if is_es else 2)
+        if not inv["max_disp_cells"] < bound_cells:
+            raise AssertionError(f"{label}: displacement {inv} past the "
+                                 f"halo's bound {bound_cells}")
+        for name in ("position", "velocity", "rho", "e", "b"):
+            t = getattr(st, name, None)
+            if t is not None and not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{label}: state.{name} not finite")
+        n_live = int(st.alive.sum())
+        if n_live != n:
+            raise AssertionError(f"{label}: {n_live} live rows, expected {n}")
+        unplaced = ""
+        if getattr(cfg, "repair", False):
+            unplaced = (f", unplaced {int(st.unplaced.sum())} "
+                        f"(single-device {int(single.state.unplaced)})")
+        log("16 sharded", f"{label} {smi}: {steps} timed steps, "
+                          f"{rate:.3f} steps/s, {ms:.4f} ms/step; "
+                          f"single-device fused {rate_1:.3f} steps/s, "
+                          f"{ms_1:.4f} ms/step; ratio {ms / ms_1:.3f}x (the "
+                          f"reference's bar: 1.3x); {kid} launches "
+                          f"{launches}; spill patched {int(st.spill.sum())}, "
+                          f"dropped past the capacity "
+                          f"{int(st.spill_dropped.sum())} (single-device "
+                          f"{int(single.state.spill_dropped)}), overflow 0"
+                          f"{unplaced}, max displacement "
+                          f"{inv['max_disp_cells']:.4f} cells a step (the "
+                          f"halo's bound {bound_cells:g})")
+
+        # the kernel against its plain version on the shard's inputs, on
+        # the live fields of the run so far: the gather reads the E (|B)
+        # table through the pseudo-grid's window wrap, and the kick moves
+        # every charged row
+        kargs = sim.fused_substep_args()
+        charged = kargs[3] != 0 if is_es else kargs[3]
+        table_max = float(kargs[0].abs().max())
+        if not table_max > 0:
+            raise AssertionError(f"{label}: the field table is all zeros")
+        out = substep(*kargs)
+        kick = float((out[1] - kargs[2])[charged].abs().max())
+        if not kick > 0:
+            raise AssertionError(f"{label}: {kid} left every velocity as "
+                                 f"it was")
+        err, report = compare_fused(torch, kid, out, plain(*kargs), charged,
+                                    grid_name)
+        del out
+        log("16 sharded", f"{label}: {kid} on the shard's pseudo-grid "
+                          f"inputs after {steps} timed steps (max|field| "
+                          f"{table_max:.3g}, max|dv| of the kick "
+                          f"{kick:.3g}): {report}")
+        k_ms = median_ms(torch, lambda: substep(*kargs))
+        p_ms = median_ms(torch, lambda: plain(*kargs), reps=3, warm=1)
+        rows = kargs[1].shape[0]
+        n_valid = int(charged.sum())
+        b_ms, b_by, _ = bound_fn(rows, n_valid, cfg.pseudo_shape,
+                                 cfg.tiling.block)
+        log("16 sharded", f"{label}: {kid} on the shard's inputs ({rows} "
+                          f"rows): kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                          f"ms, bound {b_ms:.4f} ms ({b_by})")
+        del kargs
+        profile_window(torch, "16 sharded", f"{label}, {window} steps",
+                       lambda: sim.step(window))
+        entries.append({
+            "name": f"{kid}:{kname}_substep, {label} (one shard's "
+                    f"pseudo-grid {'x'.join(map(str, cfg.pseudo_shape))})",
+            "route": "cuda",
+            "source": f"fusion_sim_torch/csrc/{kname}_substep.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
+        del sim, single
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return entries
+
+
 def main() -> None:
     try:
         import torch
@@ -2909,6 +3346,11 @@ def main() -> None:
     sharded = phase15_sharded(torch, es, fp, f3, Tiling2D, Tiling3D, smi,
                               kernel_modules)
     log("15 sharded", f"done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 16. the sharded EM model, the two-axis models, in a world of one ----
+    sharded += phase16_sharded(torch, em, fp, f3, fe, fe3, smi,
+                               kernel_modules)
+    log("16 sharded", f"done at {time.perf_counter() - t_start:.1f} s")
     log("total", f"every phase passed in {time.perf_counter() - t_start:.1f}"
                  f" s")
 

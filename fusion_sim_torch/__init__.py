@@ -34,7 +34,13 @@ counterpart):
   2D3V and 3D3V, resort or repair); ``electrostatic_sharded``:
   ``ShardedElectrostaticPIC``, the 1-axis domain-decomposed ES loop in
   2D and 3D (backends xla / pallas on kernels B1 / B5, resort or repair),
-  one rank a slab.
+  one rank a slab; ``electromagnetic_sharded``:
+  ``ShardedElectromagneticPIC``, the 1-axis EM loop in 2D3V and 3D3V
+  (plain, sorted xla or fused on B4 / B6, resort or repair);
+  ``electrostatic_sharded2d`` and ``electromagnetic_sharded2d``:
+  ``ShardedElectrostaticPIC2D`` and ``ShardedElectromagneticPIC2D``, the
+  same loops on a two-axis mesh, one rank an (x, y) block (B1 / B5 and
+  B4 / B6 on the fused backends).
 * ``parallel`` — meshes (``torch.distributed.device_mesh``), DTensor
   placements, halo exchange and particle migration on
   ``torch.distributed`` (NCCL on the card, gloo on the CPU); with the
@@ -51,11 +57,11 @@ counterpart):
   single-device entry point (``entry()``: the flagship step and its example
   arguments); ``examples`` — the users' scripts (default scenario,
   two-stream, Weibel, the ES / EM / 3D / pusher / slab benches, the drift
-  control, the contraction-depth experiment).
+  control, the contraction-depth experiment, the one-chip sharded bench
+  and the weak-scaling bench).
 
-Not ported yet: the sharded EM model, the two-axis sharded ES and EM
-models, ``dryrun_multichip`` and the probe / profiling examples
-(ROADMAP.md Queue A4b, A4c, A5 and A6).
+Not ported yet: ``dryrun_multichip`` and the probe / profiling examples
+(ROADMAP.md Queue A5 and A6).
 
 The package root exports what the JAX package's root exports: ``config``,
 ``constants``, ``CylindricalParticlePusher``, ``PusherSpec`` and

@@ -237,7 +237,7 @@ def distribute(config: ShardedESConfig, position: np.ndarray,
     d = config.base.n_dim
     shards = range(n_shards) if shard is None else (shard,)
     pos = np.zeros((len(shards) * cap, d), np.float32)
-    vel = np.zeros((len(shards) * cap, d), np.float32)
+    vel = np.zeros((len(shards) * cap, velocity.shape[1]), np.float32)
     alive = np.zeros((len(shards) * cap,), bool)
     owner = np.minimum((position[:, 0] // slab).astype(int), n_shards - 1)
     for k, s in enumerate(shards):
@@ -677,173 +677,89 @@ def make_sharded_es_free_init_fn(config: ShardedESConfig, mesh,
     return init
 
 
+def _relayout(config, state, lp, cell_order: bool):
+    """``state`` with this shard's layout rebuilt from its rows' pseudo-grid
+    coordinates ``lp`` (the global rows ride the sort as (N, d) payloads;
+    with ``cell_order``, rows by cell inside each tile); rows that fall
+    past the state's length count as overflow."""
+    cap_state = config.cap_padded
+    tid, _, pos, vel, alive_s, _ = build_padded_layout(
+        lp, config.pseudo_shape, config.tiling, state.position,
+        state.velocity, valid=state.alive,
+        reserve=getattr(config, "repair", False), derive_valid=True,
+        cell_order=cell_order)
+    alive = alive_s[:cap_state]
+    return state._replace(
+        position=torch.where(alive[:, None], pos[:cap_state], 0.0),
+        velocity=torch.where(alive[:, None], vel[:cap_state], 0.0),
+        alive=alive, tile_id=tid[:cap_state],
+        overflow=state.overflow + alive_s[cap_state:].sum())
+
+
 def make_sharded_sorted_es_resort_fn(config: ShardedESConfig, mesh,
                                      axis: str = "space"):
     """``resort(state) -> state``: this shard's layout rebuilt on its
     pseudo-grid (rows by cell inside each tile in 3D, for B5); rows that
     fall past the state's length count as overflow."""
     ring = _Ring(config, mesh, axis)
-    ndim = config.base.n_dim
-    cap_state = config.cap_padded
 
     def resort(state: ShardedESState) -> ShardedESState:
-        position, velocity = state.position, state.velocity
-        lp = _to_local(config, position, ring.x_lo)
-        # the global rows ride the sort as (N, d) payloads
-        tid, _, pos, vel, alive_s, _ = build_padded_layout(
-            lp, config.pseudo_shape, config.tiling, position, velocity,
-            valid=state.alive, reserve=config.repair, derive_valid=True,
-            cell_order=ndim == 3)
-        alive = alive_s[:cap_state]
-        return state._replace(
-            position=torch.where(alive[:, None], pos[:cap_state], 0.0),
-            velocity=torch.where(alive[:, None], vel[:cap_state], 0.0),
-            alive=alive, tile_id=tid[:cap_state],
-            overflow=state.overflow + alive_s[cap_state:].sum())
+        return _relayout(config, state,
+                         _to_local(config, state.position, ring.x_lo),
+                         config.base.n_dim == 3)
 
     return resort
 
 
-class ShardedElectrostaticPIC:
-    """Stateful shell of one rank (mirrors ``ElectrostaticPIC``).
+class _ShardedShell:
+    """What the sharded shells share: the reference's step cadence, the
+    reads over the mesh (``gather_particles``, ``check_invariants``), and
+    a state from the reference's global one (``_blob_state``).
 
-    ``mesh`` is a 1D ``DeviceMesh`` (or one with an ``axis`` dimension),
-    or the ring's process group; its size must be ``config.n_shards``.
-    Every rank passes the same global ``position``/``velocity`` and keeps
-    the particles of its own slab.  Runs on the CUDA card unless given
-    ``device="cpu"`` (NCCL on the card, gloo on the CPU)."""
+    A subclass sets ``config``, ``sorted``, ``device``, ``state``,
+    ``_step`` (and ``_resort``, sorted), ``_groups`` (the process groups
+    of its mesh axes, innermost first: gathering over them in turn stacks
+    the shards in the reference's order), ``_shard`` (this rank's index
+    in that order) and ``_debug_note`` (the extent the displacement bound
+    comes from, for ``debug_checks``' message)."""
 
-    def __init__(self, config: ShardedESConfig, mesh, position, velocity,
-                 axis: str = "space", device=None):
-        self.config = config
-        if config.backend not in ("xla", "pallas"):
-            raise ValueError(f"backend {config.backend!r} (xla|pallas)")
-        self.sorted = config.tiling is not None
-        if config.backend == "pallas" and not self.sorted:
-            raise ValueError("backend='pallas' needs the sorted composition "
-                             "(pass a tiling)")
-        if config.repair and not self.sorted:
-            raise ValueError("repair=True needs the sorted composition")
-        if config.repair_eager:
-            if not config.repair:
-                raise ValueError("repair_eager requires repair=True")
-            if not 0 < config.repair_eager <= config.tiling.margin:
-                raise ValueError(
-                    f"repair_eager={config.repair_eager} needs a tiling and "
-                    f"must be in 1..margin")
-        resolve_precision(config.pallas_precision,
-                          getattr(config.tiling, "dtype", "float32"))
+    def _attach_ring(self, config, mesh, axis, device, apron: int):
+        """The device, and the ring of a slab model (``mesh`` as
+        ``_Ring`` takes it)."""
         self.device = resolve_device(device)
         self.mesh = mesh
         self._ring = _Ring(config, mesh, axis)
-        dist_cfg = (dataclasses.replace(config, capacity=config.cap_padded)
-                    if self.sorted else config)
-        pos, vel, alive = distribute(dist_cfg,
-                                     np.asarray(position, np.float32),
-                                     np.asarray(velocity, np.float32),
-                                     shard=self._ring.shard)
-
-        def zeros(dtype):
-            return torch.zeros((1,), dtype=dtype, device=self.device)
-
-        self.state = ShardedESState(
-            position=torch.as_tensor(pos, device=self.device),
-            velocity=torch.as_tensor(vel, device=self.device),
-            alive=torch.as_tensor(alive, device=self.device),
-            overflow=zeros(torch.int64), max_disp=zeros(torch.float32),
-            tile_id=(torch.zeros(pos.shape[0], dtype=torch.int32,
-                                 device=self.device)
-                     if self.sorted else None),
-            spill=zeros(torch.int64) if self.sorted else None,
-            spill_dropped=zeros(torch.int64) if self.sorted else None)
-        if self.sorted:
-            self._resort = make_sharded_sorted_es_resort_fn(config, mesh,
-                                                            axis)
-            self.state = self._resort(self.state)
-            if config.repair:
-                self._free_init = make_sharded_es_free_init_fn(config, mesh,
-                                                               axis)
-                self.state = self._free_init(self.state)
-                self._unplaced_seen = 0
-                self._overflow_seen = 0
-                self._need_resort = False
-            if config.backend == "pallas":
-                self._seed_rho = make_sharded_es_seed_rho_fn(config, mesh,
-                                                             axis)
-                self.state = self.state._replace(
-                    rho=self._seed_rho(self.state))
-                self._step = make_sharded_sorted_es_pallas_step_fn(
-                    config, mesh, axis)
-            else:
-                self._step = make_sharded_sorted_es_step_fn(config, mesh,
-                                                            axis)
-            self._since_sort = 0
-        else:
-            self._step = make_sharded_es_step_fn(config, mesh, axis)
+        self._groups = (self._ring.group,)
+        self._shard = self._ring.shard
+        self._debug_note = f"slab={config.slab}, apron={apron}"
         self._multi_cache: dict = {}
 
-    @classmethod
-    def from_state(cls, config: ShardedESConfig, mesh, blob: dict,
-                   axis: str = "space", device=None
-                   ) -> "ShardedElectrostaticPIC":
-        """A shell on a given sorted state, with no initial resort: ``blob``
-        holds the reference's global state as numpy arrays (``{k:
-        np.asarray(v) for k, v in sim.state._asdict().items() if v is not
-        None}``), and this rank takes its shard's rows of each.  Both
-        packages then step from one layout, row for row."""
-        if config.tiling is None:
-            raise ValueError("from_state needs a sorted composition")
-        self = cls.__new__(cls)
-        self.config = config
-        self.sorted = True
-        self.device = resolve_device(device)
-        self.mesh = mesh
-        self._ring = _Ring(config, mesh, axis)
-        s, n = self._ring.shard, config.n_shards
+    def _all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM):
+        for g in self._groups:
+            dist.all_reduce(t, op=op, group=g)
+        return t
+
+    def _blob_state(self, state_cls, blob: dict, fields=(),
+                    field_blocks=None, **dtypes):
+        """``state_cls`` holding this rank's part of the reference's
+        global state ``blob`` (numpy arrays): its shard's rows of every
+        per-row and per-shard array, and its block (``field_blocks``,
+        slices of the global grid) of the grid arrays named in
+        ``fields``.  ``dtypes`` maps each key to its numpy dtype."""
+        n = self.config.n_shards
 
         def part(key, dtype):
             if blob.get(key) is None:
                 return None
             a = np.asarray(blob[key])
-            rows = a.shape[0] // n
-            return torch.as_tensor(np.ascontiguousarray(
-                a[s * rows:(s + 1) * rows], dtype), device=self.device)
+            if key in fields:
+                a = a[field_blocks]
+            else:
+                rows = a.shape[0] // n
+                a = a[self._shard * rows:(self._shard + 1) * rows]
+            return torch.as_tensor(np.array(a, dtype), device=self.device)
 
-        self.state = ShardedESState(
-            position=part("position", np.float32),
-            velocity=part("velocity", np.float32),
-            alive=part("alive", np.bool_), overflow=part("overflow", np.int64),
-            max_disp=part("max_disp", np.float32),
-            tile_id=part("tile_id", np.int32), spill=part("spill", np.int64),
-            rho=part("rho", np.float32), free_idx=part("free_idx", np.int64),
-            free_cnt=part("free_cnt", np.int64),
-            spare_idx=part("spare_idx", np.int64),
-            spare_cnt=part("spare_cnt", np.int64),
-            unplaced=part("unplaced", np.int64),
-            spill_dropped=torch.zeros((1,), dtype=torch.int64,
-                                      device=self.device))
-        self._resort = make_sharded_sorted_es_resort_fn(config, mesh, axis)
-        if config.repair:
-            self._free_init = make_sharded_es_free_init_fn(config, mesh, axis)
-            self._unplaced_seen = int(blob["unplaced"].sum())
-            self._overflow_seen = int(blob["overflow"].sum())
-            self._need_resort = False
-        if config.backend == "pallas":
-            self._seed_rho = make_sharded_es_seed_rho_fn(config, mesh, axis)
-            self._step = make_sharded_sorted_es_pallas_step_fn(config, mesh,
-                                                               axis)
-        else:
-            self._step = make_sharded_sorted_es_step_fn(config, mesh, axis)
-        self._since_sort = 0
-        self._multi_cache = {}
-        return self
-
-    def fused_substep_args(self) -> tuple:
-        """The arguments the fused backend hands its kernel (B1 / B5) at
-        the current state: E on the shard's halo-padded pseudo-grid, the
-        rows in its frame, their weights and tiles, the pseudo-grid's
-        shape and the coefficients."""
-        return _fused_inputs(self.config, self._ring, self.state)[0]
+        return state_cls(**{k: part(k, dt) for k, dt in dtypes.items()})
 
     def local_state(self) -> dict[str, np.ndarray]:
         """This rank's state as numpy arrays (its rows of the reference's
@@ -857,7 +773,7 @@ class ShardedElectrostaticPIC:
         chunks otherwise; with repair, one step at a time and the
         drain check at the end (one all_reduce)."""
         cadence = self.config.resort_every if self.sorted else 10 ** 9
-        repair = self.config.repair
+        repair = getattr(self.config, "repair", False)
         done = 0
         while done < n:
             if self.sorted and (self._since_sort >= cadence
@@ -889,9 +805,8 @@ class ShardedElectrostaticPIC:
                 self._since_sort += k
             done += k
         if repair:
-            totals = torch.stack([self.state.unplaced.sum(),
-                                  self.state.overflow.sum()])
-            dist.all_reduce(totals, group=self._ring.group)
+            totals = self._all_reduce(torch.stack(
+                [self.state.unplaced.sum(), self.state.overflow.sum()]))
             summed = types.SimpleNamespace(unplaced=totals[0],
                                            overflow=totals[1])
             self._need_resort, self._unplaced_seen, self._overflow_seen = \
@@ -904,28 +819,144 @@ class ShardedElectrostaticPIC:
                 raise RuntimeError(
                     f"migration invariant violated: max per-step "
                     f"displacement {inv['max_disp_cells']:.3f} cells >= "
-                    f"bound {self.config.disp_bound:.3f} (slab="
-                    f"{self.config.slab}, apron={APRON_W}) — particle "
+                    f"bound {self.config.disp_bound:.3f} "
+                    f"({self._debug_note}) — particle "
                     f"ownership/apron folding is no longer guaranteed; "
                     f"reduce dt or use wider slabs")
 
     def gather_particles(self) -> tuple[np.ndarray, np.ndarray]:
-        """Every live particle of the ring, on every rank, in shard
+        """Every live particle of the mesh, on every rank, in shard
         order."""
-        g = self._ring.group
-        alive = all_gather_rows(self.state.alive, g).cpu().numpy()
-        pos = all_gather_rows(self.state.position, g).cpu().numpy()
-        vel = all_gather_rows(self.state.velocity, g).cpu().numpy()
-        return pos[alive], vel[alive]
+        alive, pos, vel = (self.state.alive, self.state.position,
+                           self.state.velocity)
+        for g in self._groups:
+            alive, pos, vel = (all_gather_rows(t, g) for t in (alive, pos,
+                                                               vel))
+        alive = alive.cpu().numpy()
+        return pos.cpu().numpy()[alive], vel.cpu().numpy()[alive]
 
     def check_invariants(self) -> dict[str, float]:
         """The migration and apron preconditions as observed over the
-        ring: the largest move a step, the summed overflow."""
-        g = self._ring.group
-        md = self.state.max_disp.clone()
-        dist.all_reduce(md, op=dist.ReduceOp.MAX, group=g)
-        ov = self.state.overflow.clone()
-        dist.all_reduce(ov, group=g)
+        mesh: the largest move a step, the summed overflow."""
+        md = self._all_reduce(self.state.max_disp.clone(),
+                              dist.ReduceOp.MAX)
+        ov = self._all_reduce(self.state.overflow.clone())
         md = float(md[0])
         return {"max_disp_cells": md, "overflow": int(ov[0]),
                 "disp_bound_ok": md < self.config.disp_bound}
+
+
+_ES_DTYPES = dict(
+    position=np.float32, velocity=np.float32, alive=np.bool_,
+    overflow=np.int64, max_disp=np.float32, tile_id=np.int32,
+    spill=np.int64, rho=np.float32, free_idx=np.int64, free_cnt=np.int64,
+    spare_idx=np.int64, spare_cnt=np.int64, unplaced=np.int64)
+
+
+class ShardedElectrostaticPIC(_ShardedShell):
+    """Stateful shell of one rank (mirrors ``ElectrostaticPIC``).
+
+    ``mesh`` is a 1D ``DeviceMesh`` (or one with an ``axis`` dimension),
+    or the ring's process group; its size must be ``config.n_shards``.
+    Every rank passes the same global ``position``/``velocity`` and keeps
+    the particles of its own slab.  Runs on the CUDA card unless given
+    ``device="cpu"`` (NCCL on the card, gloo on the CPU)."""
+
+    def __init__(self, config: ShardedESConfig, mesh, position, velocity,
+                 axis: str = "space", device=None):
+        self.config = config
+        if config.backend not in ("xla", "pallas"):
+            raise ValueError(f"backend {config.backend!r} (xla|pallas)")
+        self.sorted = config.tiling is not None
+        if config.backend == "pallas" and not self.sorted:
+            raise ValueError("backend='pallas' needs the sorted composition "
+                             "(pass a tiling)")
+        if config.repair and not self.sorted:
+            raise ValueError("repair=True needs the sorted composition")
+        if config.repair_eager:
+            if not config.repair:
+                raise ValueError("repair_eager requires repair=True")
+            if not 0 < config.repair_eager <= config.tiling.margin:
+                raise ValueError(
+                    f"repair_eager={config.repair_eager} needs a tiling and "
+                    f"must be in 1..margin")
+        resolve_precision(config.pallas_precision,
+                          getattr(config.tiling, "dtype", "float32"))
+        self._attach_ring(config, mesh, axis, device, APRON_W)
+        dist_cfg = (dataclasses.replace(config, capacity=config.cap_padded)
+                    if self.sorted else config)
+        pos, vel, alive = distribute(dist_cfg,
+                                     np.asarray(position, np.float32),
+                                     np.asarray(velocity, np.float32),
+                                     shard=self._shard)
+
+        def zeros(dtype):
+            return torch.zeros((1,), dtype=dtype, device=self.device)
+
+        self.state = ShardedESState(
+            position=torch.as_tensor(pos, device=self.device),
+            velocity=torch.as_tensor(vel, device=self.device),
+            alive=torch.as_tensor(alive, device=self.device),
+            overflow=zeros(torch.int64), max_disp=zeros(torch.float32),
+            tile_id=(torch.zeros(pos.shape[0], dtype=torch.int32,
+                                 device=self.device)
+                     if self.sorted else None),
+            spill=zeros(torch.int64) if self.sorted else None,
+            spill_dropped=zeros(torch.int64) if self.sorted else None)
+        self._make_steps(mesh, axis)
+        if self.sorted:
+            self.state = self._resort(self.state)
+            if config.repair:
+                self.state = self._free_init(self.state)
+            if config.backend == "pallas":
+                self.state = self.state._replace(
+                    rho=self._seed_rho(self.state))
+
+    def _make_steps(self, mesh, axis):
+        config = self.config
+        if not self.sorted:
+            self._step = make_sharded_es_step_fn(config, mesh, axis)
+            return
+        self._resort = make_sharded_sorted_es_resort_fn(config, mesh, axis)
+        if config.repair:
+            self._free_init = make_sharded_es_free_init_fn(config, mesh, axis)
+            self._unplaced_seen = self._overflow_seen = 0
+            self._need_resort = False
+        if config.backend == "pallas":
+            self._seed_rho = make_sharded_es_seed_rho_fn(config, mesh, axis)
+            self._step = make_sharded_sorted_es_pallas_step_fn(config, mesh,
+                                                               axis)
+        else:
+            self._step = make_sharded_sorted_es_step_fn(config, mesh, axis)
+        self._since_sort = 0
+
+    @classmethod
+    def from_state(cls, config: ShardedESConfig, mesh, blob: dict,
+                   axis: str = "space", device=None
+                   ) -> "ShardedElectrostaticPIC":
+        """A shell on a given sorted state, with no initial resort: ``blob``
+        holds the reference's global state as numpy arrays (``{k:
+        np.asarray(v) for k, v in sim.state._asdict().items() if v is not
+        None}``), and this rank takes its shard's rows of each.  Both
+        packages then step from one layout, row for row."""
+        if config.tiling is None:
+            raise ValueError("from_state needs a sorted composition")
+        self = cls.__new__(cls)
+        self.config = config
+        self.sorted = True
+        self._attach_ring(config, mesh, axis, device, APRON_W)
+        self.state = self._blob_state(ShardedESState, blob, **_ES_DTYPES)
+        self.state = self.state._replace(spill_dropped=torch.zeros(
+            (1,), dtype=torch.int64, device=self.device))
+        self._make_steps(mesh, axis)
+        if config.repair:
+            self._unplaced_seen = int(blob["unplaced"].sum())
+            self._overflow_seen = int(blob["overflow"].sum())
+        return self
+
+    def fused_substep_args(self) -> tuple:
+        """The arguments the fused backend hands its kernel (B1 / B5) at
+        the current state: E on the shard's halo-padded pseudo-grid, the
+        rows in its frame, their weights and tiles, the pseudo-grid's
+        shape and the coefficients."""
+        return _fused_inputs(self.config, self._ring, self.state)[0]

@@ -42,12 +42,17 @@ def test_port_imports_no_jax(path):
 
 def test_guard_covers_the_sharded_modules():
     """The parametrization above picks up every port source by itself,
-    ``parallel/`` and the sharded ES model among them."""
+    ``parallel/``, the sharded models and their examples among them."""
     names = {str(p.relative_to(ROOT)) for p in _port_sources()}
     for module in ("parallel/__init__.py", "parallel/mesh.py",
                    "parallel/halo.py", "parallel/migration.py",
                    "parallel/sharding.py",
-                   "models/electrostatic_sharded.py"):
+                   "models/electrostatic_sharded.py",
+                   "models/electromagnetic_sharded.py",
+                   "models/electrostatic_sharded2d.py",
+                   "models/electromagnetic_sharded2d.py",
+                   "examples/bench_sharded_1chip.py",
+                   "examples/bench_weak_scaling.py"):
         assert f"fusion_sim_torch/{module}" in names, module
 
 
@@ -149,6 +154,28 @@ def test_default_device_is_cuda():
     for build in (lambda: make_mesh(1, ("space",)),
                   lambda: shd.ShardedElectrostaticPIC(sharded, None, pos,
                                                       0 * pos)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    # the sharded EM model and the two-axis models
+    from fusion_sim_torch.models import electromagnetic_sharded as emd
+    from fusion_sim_torch.models import electromagnetic_sharded2d as em2
+    from fusion_sim_torch.models import electrostatic_sharded2d as es2
+    for build in (
+            lambda: emd.ShardedElectromagneticPIC(
+                emd.ShardedEMConfig(base=em_config, n_shards=1,
+                                    capacity=512, migration_buffer=64,
+                                    tiling=tiling, gather_backend="fused"),
+                None, pos, vel3),
+            lambda: es2.ShardedElectrostaticPIC2D(
+                es2.ShardedESConfig2D(base=config, mesh_shape=(1, 1),
+                                      capacity=512, migration_buffer=64,
+                                      tiling=tiling, backend="pallas"),
+                None, pos, 0 * pos),
+            lambda: em2.ShardedElectromagneticPIC2D(
+                em2.ShardedEMConfig2D(base=em_config, mesh_shape=(1, 1),
+                                      capacity=512, migration_buffer=64,
+                                      tiling=tiling, gather_backend="fused"),
+                None, pos, vel3)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
     assert resolve_device("cpu").type == "cpu"

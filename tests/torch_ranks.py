@@ -325,3 +325,254 @@ def stacked_migration_body(rank, inp):
             "spare_cnt": _np(res.spare_cnt),
             "placed_tile": int(res.placed_tile),
             "placed_spare": int(res.placed_spare)}
+
+
+# -- the sharded EM and two-axis models: tests/test_torch_em_sharded.py and
+# tests/test_torch_sharded2d.py --------------------------------------------
+
+def _tiling(t):
+    from fusion_sim_torch.ops.sorted_deposit import Tiling2D, Tiling3D
+
+    if t is None:
+        return None
+    return Tiling2D(**t) if "tile_r" in t else Tiling3D(**t)
+
+
+def _model(kind):
+    """(base config class, sharded config class, shell class) of a model
+    kind: 'em' (slabs), 'es2d' or 'em2d' (the two-axis mesh)."""
+    if kind == "em":
+        from fusion_sim_torch.models import electromagnetic as m
+        from fusion_sim_torch.models import electromagnetic_sharded as s
+        return m.EMConfig, s.ShardedEMConfig, s.ShardedElectromagneticPIC
+    if kind == "es2d":
+        from fusion_sim_torch.models import electrostatic as m
+        from fusion_sim_torch.models import electrostatic_sharded2d as s
+        return m.ESConfig, s.ShardedESConfig2D, s.ShardedElectrostaticPIC2D
+    from fusion_sim_torch.models import electromagnetic as m
+    from fusion_sim_torch.models import electromagnetic_sharded2d as s
+    return m.EMConfig, s.ShardedEMConfig2D, s.ShardedElectromagneticPIC2D
+
+
+def sharded_config(kind, config):
+    base_cls, cfg_cls, _ = _model(kind)
+    kw = dict(config)
+    base = base_cls(**kw.pop("base"))
+    tiling = _tiling(kw.pop("tiling", None))
+    if "mesh_shape" in kw:
+        kw["mesh_shape"] = tuple(kw["mesh_shape"])
+    return cfg_cls(base=base, tiling=tiling, **kw)
+
+
+def _owned(sim):
+    """Every live row lies in this rank's block."""
+    st = sim.state
+    if hasattr(sim, "_m2"):
+        lows, slabs = sim._m2.lows, sim.config.slabs
+    else:
+        lows, slabs = (sim._ring.x_lo,), (sim.config.slab,)
+    p = st.position[st.alive]
+    return all(bool(((p[:, a] >= lo) & (p[:, a] < lo + s)).all())
+               for a, (lo, s) in enumerate(zip(lows, slabs)))
+
+
+def run_case(kind, case, mesh):
+    """One case on one mesh (or ring): the constructor's state; then
+    (given the reference's initial state, else from the constructor's)
+    ``steps`` single steps, whether every live row stayed in its block
+    after each; ``more`` shell steps after them; every stage's local state
+    and the live particles gathered over the mesh."""
+    cfg = sharded_config(kind, case["config"])
+    cls = _model(kind)[2]
+    res = {}
+    sim = cls(cfg, mesh, case["position"], case["velocity"], device="cpu")
+    res["built"] = sim.local_state()
+    if case.get("expect_raise"):
+        try:
+            sim.step(case["steps"])
+            res["raised"] = None
+        except RuntimeError as exc:
+            res["raised"] = str(exc)
+        return res
+    if case.get("initial") is not None:
+        sim = cls.from_state(cfg, mesh, case["initial"], device="cpu")
+    res["owned"] = []
+    for _ in range(case["steps"]):
+        if getattr(cfg, "repair", False):
+            sim.step(1)
+        else:
+            sim.state = sim._step(sim.state)
+        res["owned"].append(_owned(sim))
+    if sim.sorted and not getattr(cfg, "repair", False):
+        sim._since_sort = case["steps"]   # the shell's cadence goes on
+    res["stepped"] = sim.local_state()
+    if getattr(cfg, "backend", None) == "pallas":
+        res["seed_rho"] = _np(sim._seed_rho(sim.state))
+    for _ in range(case.get("more", 0)):
+        sim.step(1)
+    res["final"] = sim.local_state()
+    res["particles"] = sim.gather_particles()
+    res["invariants"] = sim.check_invariants()
+    return res
+
+
+def _cases_on(inp, rank, meshes, body):
+    out = {}
+    for case in inp["cases"]:
+        if case.get("ranks") is not None and rank not in case["ranks"]:
+            continue
+        mesh = meshes[case["mesh"]]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out[case["name"]] = body(case, mesh)
+        out[case["name"]]["warnings"] = [str(w.message) for w in caught]
+    return out
+
+
+def em_body(rank, inp):
+    """Every case of tests/test_torch_em_sharded.py on this rank: rings of
+    four, rings of two ((0, 1) and (2, 3) run different cases at once),
+    single shards."""
+    from fusion_sim_torch.parallel.mesh import make_mesh
+
+    meshes = {4: make_mesh(4, ("space",), device="cpu"), 2: _pairs(rank),
+              1: _singles(rank)}
+    return _cases_on(inp, rank, meshes,
+                     lambda case, mesh: run_case("em", case, mesh))
+
+
+def mesh2d_body(rank, inp):
+    """Every case of tests/test_torch_sharded2d.py on this rank: the (2,
+    2), (4, 1) and (1, 4) meshes of the world of four, and (1, 1) meshes
+    on single ranks (every rank builds all four, as group creation
+    requires)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from fusion_sim_torch.models import electrostatic_sharded
+    from fusion_sim_torch.parallel.mesh import make_mesh
+
+    names = ("sx", "sy")
+    meshes = {shape: make_mesh(4, names, shape=shape, device="cpu")
+              for shape in ((2, 2), (4, 1), (1, 4))}
+    singles = [DeviceMesh("cpu", torch.tensor([[r]]), mesh_dim_names=names)
+               for r in range(dist.get_world_size())]
+    meshes[(1, 1)] = singles[rank]
+    dft_max = electrostatic_sharded.GATHERED_DFT_MAX
+
+    def body(case, mesh):
+        if case.get("bad_mesh"):
+            cfg = sharded_config(case["kind"], case["config"])
+            try:
+                _model(case["kind"])[2](cfg, mesh, case["position"],
+                                        case["velocity"], device="cpu")
+                return {"raised": None}
+            except ValueError as exc:
+                return {"raised": str(exc)}
+        # the pencil route on a small 2D grid (the reference test patches
+        # the same switch)
+        electrostatic_sharded.GATHERED_DFT_MAX = case.get("dft_max",
+                                                          dft_max)
+        try:
+            return run_case(case["kind"], case, mesh)
+        finally:
+            electrostatic_sharded.GATHERED_DFT_MAX = dft_max
+
+    return _cases_on(inp, rank, meshes, body)
+
+
+# -- comparisons in the pytest process (numpy only) -----------------------------
+
+def run_world_beside(n: int, body, inputs, tmp_dir, work):
+    """``run_world`` in a thread while this process runs ``work()`` (the
+    reference's side); returns ``(ranks, work's result)``."""
+    import threading
+
+    box = {}
+
+    def target():
+        try:
+            box["ranks"] = run_world(n, body, inputs, tmp_dir)
+        except BaseException as exc:  # re-raised in the caller's thread
+            box["error"] = exc
+
+    thread = threading.Thread(target=target)
+    thread.start()
+    try:
+        done = work()
+    finally:
+        thread.join()
+    if "error" in box:
+        raise box["error"]
+    return box["ranks"], done
+
+
+def stack(parts, key):
+    return np.concatenate([p[key] for p in parts])
+
+
+def stack_blocks(parts, key, mesh_shape):
+    """The global grid from the ranks' blocks (shards in mesh order)."""
+    sx, sy = mesh_shape
+    rows = [np.concatenate([parts[ix * sy + iy][key] for iy in range(sy)],
+                           axis=1) for ix in range(sx)]
+    return np.concatenate(rows, axis=0)
+
+
+def match_rows(got, want, atol):
+    """Each live particle of ``got`` (positions, velocities) has its own
+    nearest reference row, within ``atol`` in every coordinate."""
+    from scipy.spatial import cKDTree
+
+    assert got[0].shape == want[0].shape, (got[0].shape, want[0].shape)
+    rows_g = np.concatenate(got, axis=1)
+    rows_w = np.concatenate(want, axis=1)
+    _, idx = cKDTree(want[0]).query(got[0])
+    assert len(np.unique(idx)) == len(idx)
+    np.testing.assert_allclose(rows_g, rows_w[idx], rtol=0, atol=atol)
+
+
+def tile_segments(state):
+    """{tile: the segment's live rows, sorted} of a layout."""
+    tid, alive = state["tile_id"], state["alive"]
+    rows = np.concatenate([state["position"], state["velocity"]], axis=1)
+    out = {}
+    for t in np.unique(tid[alive]):
+        seg = rows[(tid == t) & alive]
+        out[int(t)] = seg[np.lexsort(seg[:, ::-1].T)]
+    return out
+
+
+def check_layout(got, want):
+    """Two layouts of one shard: the same tile ids and validity, each tile
+    segment the same set of rows (the sorts order rows inside a tile
+    differently)."""
+    np.testing.assert_array_equal(got["tile_id"], want["tile_id"])
+    np.testing.assert_array_equal(got["alive"], want["alive"])
+    have, need = tile_segments(got), tile_segments(want)
+    assert have.keys() == need.keys()
+    for t in need:
+        np.testing.assert_array_equal(have[t], need[t])
+
+
+COUNTS = ("alive", "tile_id", "overflow", "spill", "unplaced", "free_cnt",
+          "free_idx", "spare_cnt", "spare_idx")
+
+
+def check_rows(got: dict, want: dict, atol: float, field_tol: float):
+    """Two states row for row: the counts and layout exactly, live rows'
+    positions and velocities within ``atol``, dead rows 0, ``max_disp``
+    to f32 rounding, grid arrays within ``field_tol`` of their max."""
+    for key in COUNTS:
+        if key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    alive = want["alive"]
+    for key in ("position", "velocity"):
+        np.testing.assert_allclose(got[key][alive], want[key][alive],
+                                   rtol=0, atol=atol, err_msg=key)
+        np.testing.assert_array_equal(got[key][~alive], 0.0)
+    np.testing.assert_allclose(got["max_disp"], want["max_disp"], rtol=1e-5)
+    for key in ("e", "b", "rho"):
+        if key in want:
+            scale = max(np.abs(want[key]).max(), 1e-30)
+            np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                       atol=field_tol * scale, err_msg=key)
