@@ -1,0 +1,4 @@
+"""``solve_ms_per_step`` in the device-bound cells, which move
+``particle_updates_per_s.device_bound``."""
+
+from .solve_ms_per_step import read  # noqa: F401
