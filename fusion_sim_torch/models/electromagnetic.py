@@ -46,6 +46,7 @@ from ..ops.sorted_deposit import (Tiling2D, Tiling3D, build_padded_layout,
                                   esirkepov_sorted_2d, esirkepov_sorted_3d,
                                   gather_sorted_2d, gather_sorted_3d)
 from ..ops.sorted_gather import gather_sorted_2d_window
+from ..utils.profiling import count, span
 
 
 class EMState(NamedTuple):
@@ -389,6 +390,14 @@ class SortedElectromagneticPIC:
     (``build_padded_layout(cell_order=True)``), at build and at every
     resort, so that kernel B4 sums a warp's rows of one cell before it adds
     them to its window.
+
+    While a ``torch.profiler`` records, ``step`` opens the spans of
+    ``utils/profiling.span`` (``fusion_sim.step`` around the call; leaf
+    phases ``fields``, ``kernel``, ``patch``, ``repair``, ``solve``,
+    ``finish``, ``resort`` and ``drain_check``, which hold every operation
+    a step launches, with ``host_read`` inside ``patch`` around each read
+    of a spill count) and counts ``rows_patched``, the rows of a step that
+    took the exact patch.
     """
 
     def __init__(self, config: EMConfig, position, velocity,
@@ -534,12 +543,13 @@ class SortedElectromagneticPIC:
         """The count of ``mask`` (one host read) and, with the fallback on,
         the indices of its first ``spill_capacity`` rows in row order
         (None when there is nothing to patch)."""
-        count = int(mask.sum())
-        if not (self.spill_fallback and count):
-            return count, None
+        with span("host_read"):
+            spill = int(mask.sum())
+        if not (self.spill_fallback and spill):
+            return spill, None
         cap = self.spill_capacity
-        idx = spill_rows(mask, count, cap, mask.shape[0])[0]
-        return count, idx[:min(count, cap)]
+        idx = spill_rows(mask, spill, cap, mask.shape[0])[0]
+        return spill, idx[:min(spill, cap)]
 
     def _relocated(self, state, x1, velocity, idx, x1_k, vel_k, in_win):
         """With repair on: the patched rows ``idx`` (values ``x1_k``/
@@ -548,27 +558,32 @@ class SortedElectromagneticPIC:
         velocity, state updates)``."""
         if not self.repair:
             return x1, velocity, {}
-        x1, velocity, _, extra = repair_relocate(
-            state, x1, velocity, idx, None, x1_k, vel_k,
-            self.config.grid_shape, self.tiling, self._n_tiles,
-            self.config.n_dim, in_win=in_win, eager_keep=self.repair_eager,
-            eager_cap=self.eager_capacity)
+        with span("repair"):
+            x1, velocity, _, extra = repair_relocate(
+                state, x1, velocity, idx, None, x1_k, vel_k,
+                self.config.grid_shape, self.tiling, self._n_tiles,
+                self.config.n_dim, in_win=in_win,
+                eager_keep=self.repair_eager, eager_cap=self.eager_capacity)
         return x1, velocity, extra
 
     def _finish(self, state, x1, velocity, j, spill, **extra) -> None:
         """The Yee update, fillers zeroed (on the validity after any
         relocation), counters advanced."""
-        e_new, b_new = yee_update(self.config, state.e, state.b, j)
-        valid = extra.get("valid", state.valid)[:, None]
+        with span("solve"):
+            e_new, b_new = yee_update(self.config, state.e, state.b, j)
         if self.spill_fallback:
             dropped = max(spill - self.spill_capacity, 0)
         else:
             dropped = spill
-        self.state = state._replace(
-            position=torch.where(valid, x1, 0.0),
-            velocity=torch.where(valid, velocity, 0.0),
-            e=e_new, b=b_new, step=state.step + 1, spill=state.spill + spill,
-            spill_dropped=state.spill_dropped + dropped, **extra)
+        count("rows_patched", spill - dropped)
+        with span("finish"):
+            valid = extra.get("valid", state.valid)[:, None]
+            self.state = state._replace(
+                position=torch.where(valid, x1, 0.0),
+                velocity=torch.where(valid, velocity, 0.0),
+                e=e_new, b=b_new, step=state.step + 1,
+                spill=state.spill + spill,
+                spill_dropped=state.spill_dropped + dropped, **extra)
 
     def _step_fused(self) -> None:
         """One kernel covers gather + kick + drift + Esirkepov; the Yee
@@ -576,33 +591,38 @@ class SortedElectromagneticPIC:
         config, state = self.config, self.state
         shape = config.grid_shape
         qm_half_dt, dxv, grid_f = self._consts
-        table = fdtd.center_fields(state.e, state.b, *_offsets(config))
+        with span("fields"):
+            table = fdtd.center_fields(state.e, state.b, *_offsets(config))
         substep = (fused_em2d_substep if config.n_dim == 2
                    else fused_em3d_substep)
-        x1, velocity, j, in_win = substep(
-            table, state.position, state.velocity, state.valid,
-            state.tile_id, shape, self.tiling, qm_half_dt, config.dt,
-            config.cell_size, config.charge, c_light=config.c,
-            relativistic=config.relativistic,
-            precision=self.pallas_precision or "highest")
+        with span("kernel"):
+            x1, velocity, j, in_win = substep(
+                table, state.position, state.velocity, state.valid,
+                state.tile_id, shape, self.tiling, qm_half_dt, config.dt,
+                config.cell_size, config.charge, c_light=config.c,
+                relativistic=config.relativistic,
+                precision=self.pallas_precision or "highest")
         # exact re-push + deposit of out-of-window rows, from their inputs
-        spill_mask = ~in_win & state.valid
-        spill, idx = self._spilled(spill_mask)
-        x1w_k = vel_k = None
-        if idx is not None:
-            x0_k = torch.remainder(state.position[idx], grid_f)
-            eb_k = cic_gather_packed(table, x0_k, shape)
-            vel_k = boris_kick(state.velocity[idx], eb_k[:, :3], eb_k[:, 3:],
-                               qm_half_dt, config.relativistic, config.c)
-            cv_k = _coord_velocity(config, vel_k)
-            x1_k = x0_k + config.dt * cv_k[:, :config.n_dim] / dxv
-            j = j + _deposit(config, x0_k, x1_k, cv_k, config.charge)
-            x1w_k = torch.remainder(x1_k, grid_f)
-            if not self.repair:
-                x1[idx] = x1w_k
-                velocity[idx] = vel_k
+        with span("patch"):
+            spill_mask = ~in_win & state.valid
+            spill, idx = self._spilled(spill_mask)
+            x1w_k = vel_k = None
+            if idx is not None:
+                x0_k = torch.remainder(state.position[idx], grid_f)
+                eb_k = cic_gather_packed(table, x0_k, shape)
+                vel_k = boris_kick(state.velocity[idx], eb_k[:, :3],
+                                   eb_k[:, 3:], qm_half_dt,
+                                   config.relativistic, config.c)
+                cv_k = _coord_velocity(config, vel_k)
+                x1_k = x0_k + config.dt * cv_k[:, :config.n_dim] / dxv
+                j = j + _deposit(config, x0_k, x1_k, cv_k, config.charge)
+                x1w_k = torch.remainder(x1_k, grid_f)
+                if not self.repair:
+                    x1[idx] = x1w_k
+                    velocity[idx] = vel_k
+            unspilled = ~spill_mask
         x1, velocity, extra = self._relocated(state, x1, velocity, idx,
-                                              x1w_k, vel_k, ~spill_mask)
+                                              x1w_k, vel_k, unspilled)
         self._finish(state, x1, velocity, j, spill, **extra)
 
     def _step_split(self) -> None:
@@ -613,68 +633,80 @@ class SortedElectromagneticPIC:
         shape = config.grid_shape
         qm_half_dt, dxv, grid_f = self._consts
         ndim = config.n_dim
-        table = fdtd.center_fields(state.e, state.b, *_offsets(config))
-        if self.gather_backend == "pallas" and ndim == 2:
-            eb, g_inw = gather_sorted_2d_window(
-                table, state.position, state.tile_id, shape, self.tiling,
-                "cic", precision=self.pallas_precision or "highest")
-        else:
-            gather = gather_sorted_2d if ndim == 2 else gather_sorted_3d
-            eb, g_inw = gather(table, state.position, state.tile_id, shape,
-                               self.tiling)
+        with span("fields"):
+            table = fdtd.center_fields(state.e, state.b, *_offsets(config))
+        with span("kernel"):
+            if self.gather_backend == "pallas" and ndim == 2:
+                eb, g_inw = gather_sorted_2d_window(
+                    table, state.position, state.tile_id, shape, self.tiling,
+                    "cic", precision=self.pallas_precision or "highest")
+            else:
+                gather = gather_sorted_2d if ndim == 2 else gather_sorted_3d
+                eb, g_inw = gather(table, state.position, state.tile_id,
+                                   shape, self.tiling)
         if self.spill_fallback:
-            _, g_idx = self._spilled(~g_inw & state.valid)
-            if g_idx is not None:
-                eb[g_idx] = cic_gather_packed(
-                    table, torch.remainder(state.position[g_idx], grid_f),
-                    shape)
-        velocity = boris_kick(state.velocity, eb[:, :3], eb[:, 3:],
-                              qm_half_dt, config.relativistic, config.c)
-        velocity = torch.where(state.valid[:, None], velocity, 0.0)
-        coord_v = _coord_velocity(config, velocity)
-        x0 = state.position
-        x1 = x0 + config.dt * coord_v[:, :ndim] / dxv  # unwrapped for deposit
-        charge = torch.where(state.valid, config.charge, 0.0).to(
-            torch.float32)
-        if ndim == 2:
-            j, _, spill_mask = esirkepov_sorted_2d(
-                x0, x1, coord_v[:, 2], charge, state.tile_id, config.dt,
-                shape, config.cell_size, self.tiling)
-        else:
-            j, _, spill_mask = esirkepov_sorted_3d(
-                x0, x1, charge, state.tile_id, config.dt, shape,
-                config.cell_size, self.tiling)
-        spill, idx = self._spilled(spill_mask)
-        if idx is not None:
-            # exact patch for up to spill_capacity margin out-drifters
-            # (charge conservation holds while spill stays under capacity)
-            j = j + _deposit(config, x0[idx], x1[idx], coord_v[idx],
-                             charge[idx])
-        x1 = torch.remainder(x1, grid_f)
+            with span("patch"):
+                _, g_idx = self._spilled(~g_inw & state.valid)
+                if g_idx is not None:
+                    eb[g_idx] = cic_gather_packed(
+                        table, torch.remainder(state.position[g_idx], grid_f),
+                        shape)
+        with span("kernel"):
+            velocity = boris_kick(state.velocity, eb[:, :3], eb[:, 3:],
+                                  qm_half_dt, config.relativistic, config.c)
+            velocity = torch.where(state.valid[:, None], velocity, 0.0)
+            coord_v = _coord_velocity(config, velocity)
+            x0 = state.position
+            # unwrapped for the deposit
+            x1 = x0 + config.dt * coord_v[:, :ndim] / dxv
+            charge = torch.where(state.valid, config.charge, 0.0).to(
+                torch.float32)
+            if ndim == 2:
+                j, _, spill_mask = esirkepov_sorted_2d(
+                    x0, x1, coord_v[:, 2], charge, state.tile_id, config.dt,
+                    shape, config.cell_size, self.tiling)
+            else:
+                j, _, spill_mask = esirkepov_sorted_3d(
+                    x0, x1, charge, state.tile_id, config.dt, shape,
+                    config.cell_size, self.tiling)
+        with span("patch"):
+            spill, idx = self._spilled(spill_mask)
+            if idx is not None:
+                # exact patch for up to spill_capacity margin out-drifters
+                # (charge conservation holds while spill stays under
+                # capacity)
+                j = j + _deposit(config, x0[idx], x1[idx], coord_v[idx],
+                                 charge[idx])
+        with span("kernel"):
+            x1 = torch.remainder(x1, grid_f)
         # relocation carries each patched row's own (exact) values
-        x1, velocity, extra = self._relocated(
-            state, x1, velocity, idx, None if idx is None else x1[idx],
-            None if idx is None else velocity[idx], ~spill_mask)
+        with span("patch"):
+            x1_k = None if idx is None else x1[idx]
+            vel_k = None if idx is None else velocity[idx]
+            unspilled = ~spill_mask
+        x1, velocity, extra = self._relocated(state, x1, velocity, idx, x1_k,
+                                              vel_k, unspilled)
         self._finish(state, x1, velocity, j, spill, **extra)
 
     def _resort(self) -> None:
         """Rebuild the layout (one sort); fillers and invalid rows sink to
         the trailing dead region, which the truncation drops (real count
         conserved: periodic, no sinks)."""
-        s = self.state
-        n_state = s.position.shape[0]
-        tid, pos_p, v0, v1, v2, valid_p, _ = build_padded_layout(
-            s.position, self.config.grid_shape, self.tiling,
-            s.velocity[:, 0], s.velocity[:, 1], s.velocity[:, 2],
-            valid=s.valid, reserve=self.repair, spread=self.repair,
-            derive_valid=True, cell_order=self._cell_order)
-        self.state = s._replace(
-            position=pos_p[:n_state],
-            velocity=torch.stack([v0[:n_state], v1[:n_state], v2[:n_state]],
-                                 dim=-1),
-            tile_id=tid[:n_state], valid=valid_p[:n_state])
-        if self.repair:
-            self._rebuild_free_list()
+        with span("resort"):
+            s = self.state
+            n_state = s.position.shape[0]
+            tid, pos_p, v0, v1, v2, valid_p, _ = build_padded_layout(
+                s.position, self.config.grid_shape, self.tiling,
+                s.velocity[:, 0], s.velocity[:, 1], s.velocity[:, 2],
+                valid=s.valid, reserve=self.repair, spread=self.repair,
+                derive_valid=True, cell_order=self._cell_order)
+            self.state = s._replace(
+                position=pos_p[:n_state],
+                velocity=torch.stack([v0[:n_state], v1[:n_state],
+                                      v2[:n_state]], dim=-1),
+                tile_id=tid[:n_state], valid=valid_p[:n_state])
+            if self.repair:
+                self._rebuild_free_list()
 
     def step(self, n: int = 1) -> None:
         """Advance ``n`` steps with the reference's resort cadence: a
@@ -684,27 +716,29 @@ class SortedElectromagneticPIC:
         With repair the resort runs at the start of a window or after the
         free stacks drained, and a call ends with the drain check (one
         host read)."""
-        done = 0
-        while done < n:
-            if self._since_sort >= self.resort_every or self._need_resort:
-                self._resort()
-                self._since_sort = 0
-                self._need_resort = False
-            k = min(n - done, self.resort_every - self._since_sort)
-            for _ in range(k):
-                self._step_once()
-            done += k
-            if k == self.resort_every and not self.repair:
-                self._resort()
-            else:
-                self._since_sort += k
-        if self.repair:
-            cap = max(self.spill_capacity,
-                      self.eager_capacity if self.repair_eager else 0)
-            self._need_resort, self._unplaced_seen, _ = drain_check(
-                self.state, self._unplaced_seen, 0, cap, self.n_real, n)
-        if self.check_spill:
-            self._check_spill()
+        with span("step"):
+            done = 0
+            while done < n:
+                if self._since_sort >= self.resort_every \
+                        or self._need_resort:
+                    self._resort()
+                    self._since_sort = 0
+                    self._need_resort = False
+                k = min(n - done, self.resort_every - self._since_sort)
+                for _ in range(k):
+                    self._step_once()
+                done += k
+                if k == self.resort_every and not self.repair:
+                    self._resort()
+                else:
+                    self._since_sort += k
+            if self.repair:
+                cap = max(self.spill_capacity,
+                          self.eager_capacity if self.repair_eager else 0)
+                self._need_resort, self._unplaced_seen, _ = drain_check(
+                    self.state, self._unplaced_seen, 0, cap, self.n_real, n)
+            if self.check_spill:
+                self._check_spill()
 
     def energies(self) -> dict[str, float]:
         # fillers carry zero velocity, so they add nothing to either form

@@ -44,6 +44,7 @@ from ..ops.solvers import gradient_periodic, poisson_fft
 from ..ops.sorted_deposit import (Tiling2D, Tiling3D, build_padded_layout,
                                   deposit_sorted_2d, deposit_sorted_3d,
                                   gather_sorted_2d, gather_sorted_3d)
+from ..utils.profiling import count, span
 
 
 class ESState(NamedTuple):
@@ -253,6 +254,14 @@ class SortedElectrostaticPIC:
     (1..margin) also relocates rows within k cells of leaving their
     window, carrying their own exact values, up to ``eager_capacity`` rows
     a step; ``repair_free_slots`` sizes each tile's stack.
+
+    While a ``torch.profiler`` records, ``step`` opens the spans of
+    ``utils/profiling.span`` (``fusion_sim.step`` around the call; leaf
+    phases ``solve``, ``kernel``, ``patch``, ``repair``, ``resort`` and
+    ``drain_check``, which hold every operation a step launches, with
+    ``host_read`` inside ``patch`` around the step's read of the spill
+    count) and counts ``rows_patched``, the rows of a step that took the
+    exact patch.
     """
 
     def __init__(self, config: ESConfig, position, velocity,
@@ -440,15 +449,18 @@ class SortedElectrostaticPIC:
     def _repair(self, state, pos, vel, idx, pos_k, vel_k, in_win):
         """``ops/repair.repair_relocate`` with this model's settings;
         returns ``(pos, vel, state updates)``."""
-        pos, vel, _, extra = repair_relocate(
-            state, pos, vel, idx, None, pos_k, vel_k, self.config.grid_shape,
-            self.tiling, self._n_tiles, self.config.n_dim, in_win=in_win,
-            eager_keep=self.repair_eager, eager_cap=self.eager_capacity)
+        with span("repair"):
+            pos, vel, _, extra = repair_relocate(
+                state, pos, vel, idx, None, pos_k, vel_k,
+                self.config.grid_shape, self.tiling, self._n_tiles,
+                self.config.n_dim, in_win=in_win,
+                eager_keep=self.repair_eager, eager_cap=self.eager_capacity)
         return pos, vel, extra
 
     def _advance(self, state, pos, vel, spill, **extra) -> None:
         dropped = max(spill - self.spill_capacity, 0) if self.spill_fallback \
             else spill
+        count("rows_patched", spill - dropped)
         self.state = state._replace(
             position=pos, velocity=vel, step=state.step + 1,
             spill=state.spill + spill,
@@ -459,44 +471,49 @@ class SortedElectrostaticPIC:
         kick + drift + deposit; spilled rows are re-pushed exactly."""
         config, state = self.config, self.state
         shape = config.grid_shape
-        rho = state.rho
-        if config.neutralizing_background:
-            rho = rho - torch.sum(rho) / math.prod(shape)
-        _, e_grid = solve_fields(config, rho)
-        w = self._weights()
-        qm_dt = float(config.charge / config.mass * config.dt)
-        c_ax = (float(config.dt / d) for d in config.cell_size)
-        substep = (fused_es2d_substep if config.n_dim == 2
-                   else fused_es3d_substep)
-        pos, vel, rho_new, in_win = substep(
-            e_grid, state.position, state.velocity, w, state.tile_id,
-            shape, self.tiling, qm_dt, *c_ax,
-            precision=self.pallas_precision or "highest")
-        spill_mask = (~in_win) & state.valid
-        # the one host read of the step: it picks the patch tier
-        spill = int(spill_mask.sum())
-        idx = pos_k = vel_k = None
-        if self.spill_fallback and spill:
-            # exact patch of the rows that left their window; rows beyond
-            # spill_capacity stay frozen and count as dropped
-            idx = self._patch_rows(spill_mask, spill)
-            grid_f = self._grid_f()
-            dx = torch.tensor(config.cell_size, dtype=torch.float32,
-                              device=self.device)
-            pos_k = torch.remainder(state.position[idx], grid_f)
-            e_k = cic_gather_packed(e_grid, pos_k, shape)
-            vel_k = state.velocity[idx] + qm_dt * e_k
-            pos_k = torch.remainder(pos_k + config.dt * vel_k / dx, grid_f)
-            rho_new = rho_new + cic_deposit_packed(pos_k, w[idx], shape)
+        with span("solve"):
+            rho = state.rho
+            if config.neutralizing_background:
+                rho = rho - torch.sum(rho) / math.prod(shape)
+            _, e_grid = solve_fields(config, rho)
+        with span("kernel"):
+            w = self._weights()
+            qm_dt = float(config.charge / config.mass * config.dt)
+            c_ax = (float(config.dt / d) for d in config.cell_size)
+            substep = (fused_es2d_substep if config.n_dim == 2
+                       else fused_es3d_substep)
+            pos, vel, rho_new, in_win = substep(
+                e_grid, state.position, state.velocity, w, state.tile_id,
+                shape, self.tiling, qm_dt, *c_ax,
+                precision=self.pallas_precision or "highest")
+        with span("patch"):
+            spill_mask = (~in_win) & state.valid
+            # the one host read of the step: it picks the patch tier
+            with span("host_read"):
+                spill = int(spill_mask.sum())
+            idx = pos_k = vel_k = None
+            if self.spill_fallback and spill:
+                # exact patch of the rows that left their window; rows
+                # beyond spill_capacity stay frozen and count as dropped
+                idx = self._patch_rows(spill_mask, spill)
+                grid_f = self._grid_f()
+                dx = torch.tensor(config.cell_size, dtype=torch.float32,
+                                  device=self.device)
+                pos_k = torch.remainder(state.position[idx], grid_f)
+                e_k = cic_gather_packed(e_grid, pos_k, shape)
+                vel_k = state.velocity[idx] + qm_dt * e_k
+                pos_k = torch.remainder(pos_k + config.dt * vel_k / dx,
+                                        grid_f)
+                rho_new = rho_new + cic_deposit_packed(pos_k, w[idx], shape)
+            if not self.repair and idx is not None:
+                pos[idx] = pos_k
+                vel[idx] = vel_k
         extra = {}
         if self.repair:
             # patched rows carry their exact values to their new tile;
             # band rows (eager) carry their own kernel outputs
             pos, vel, extra = self._repair(state, pos, vel, idx, pos_k, vel_k,
                                            in_win)
-        elif idx is not None:
-            pos[idx] = pos_k
-            vel[idx] = vel_k
         self._advance(state, pos, vel, spill, rho=rho_new, **extra)
 
     def _step_xla(self) -> None:
@@ -508,58 +525,71 @@ class SortedElectrostaticPIC:
         two_d = config.n_dim == 2
         deposit = deposit_sorted_2d if two_d else deposit_sorted_3d
         gather = gather_sorted_2d if two_d else gather_sorted_3d
-        grid_f = self._grid_f()
-        dx = torch.tensor(config.cell_size, dtype=torch.float32,
-                          device=self.device)
-        qm_dt = config.charge / config.mass * config.dt
-        w = self._weights()
-        rho, spill_t, spill_mask = deposit(state.position, w, state.tile_id,
-                                           shape, self.tiling)
-        spill = int(spill_t)            # the one host read of the step
-        idx = None
-        if self.spill_fallback and spill:
-            idx = self._patch_rows(spill_mask, spill)
-            rho = rho + cic_deposit_packed(
-                torch.remainder(state.position[idx], grid_f), w[idx], shape)
-        if config.neutralizing_background:
-            rho = rho - torch.sum(rho) / math.prod(shape)
-        _, e_grid = solve_fields(config, rho)
+        with span("kernel"):
+            grid_f = self._grid_f()
+            dx = torch.tensor(config.cell_size, dtype=torch.float32,
+                              device=self.device)
+            qm_dt = config.charge / config.mass * config.dt
+            w = self._weights()
+            rho, spill_t, spill_mask = deposit(state.position, w,
+                                               state.tile_id, shape,
+                                               self.tiling)
+        with span("patch"):
+            with span("host_read"):
+                spill = int(spill_t)    # the one host read of the step
+            idx = None
+            if self.spill_fallback and spill:
+                idx = self._patch_rows(spill_mask, spill)
+                rho = rho + cic_deposit_packed(
+                    torch.remainder(state.position[idx], grid_f), w[idx],
+                    shape)
+        with span("solve"):
+            if config.neutralizing_background:
+                rho = rho - torch.sum(rho) / math.prod(shape)
+            _, e_grid = solve_fields(config, rho)
         # gather and deposit share the window criterion at the same
         # positions, so the deposit's patch rows patch both
-        e_at_p, _ = gather(e_grid, state.position, state.tile_id, shape,
-                           self.tiling)
+        with span("kernel"):
+            e_at_p, _ = gather(e_grid, state.position, state.tile_id, shape,
+                               self.tiling)
         if idx is not None:
-            e_at_p[idx] = cic_gather_packed(
-                e_grid, torch.remainder(state.position[idx], grid_f), shape)
-        velocity = state.velocity + qm_dt * e_at_p
-        velocity = torch.where(state.valid[:, None], velocity, 0.0)
-        position = state.position + (config.dt * velocity) / dx
-        position = torch.remainder(position, grid_f)
+            with span("patch"):
+                e_at_p[idx] = cic_gather_packed(
+                    e_grid, torch.remainder(state.position[idx], grid_f),
+                    shape)
+        with span("kernel"):
+            velocity = state.velocity + qm_dt * e_at_p
+            velocity = torch.where(state.valid[:, None], velocity, 0.0)
+            position = state.position + (config.dt * velocity) / dx
+            position = torch.remainder(position, grid_f)
         extra = {}
         if self.repair:
-            pos_k = vel_k = None
-            if idx is not None:
-                pos_k, vel_k = position[idx], velocity[idx]
+            with span("patch"):
+                pos_k = vel_k = None
+                if idx is not None:
+                    pos_k, vel_k = position[idx], velocity[idx]
+                unspilled = ~spill_mask
             position, velocity, extra = self._repair(
-                state, position, velocity, idx, pos_k, vel_k, ~spill_mask)
+                state, position, velocity, idx, pos_k, vel_k, unspilled)
         self._advance(state, position, velocity, spill, **extra)
 
     def _resort(self) -> None:
         """Rebuild the layout (one sort); fillers and invalid rows sink to
         the trailing dead region, which the truncation drops."""
-        s = self.state
-        n_state = s.position.shape[0]
-        tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
-            s.position, self.config.grid_shape, self.tiling,
-            *s.velocity.unbind(-1), valid=s.valid, reserve=self.repair,
-            spread=self.repair, derive_valid=True,
-            cell_order=self.config.n_dim == 3)
-        self.state = s._replace(
-            position=pos_p[:n_state],
-            velocity=torch.stack([v[:n_state] for v in v_cols], dim=-1),
-            tile_id=tid[:n_state], valid=valid_p[:n_state])
-        if self.repair:
-            self._rebuild_free_list()
+        with span("resort"):
+            s = self.state
+            n_state = s.position.shape[0]
+            tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
+                s.position, self.config.grid_shape, self.tiling,
+                *s.velocity.unbind(-1), valid=s.valid, reserve=self.repair,
+                spread=self.repair, derive_valid=True,
+                cell_order=self.config.n_dim == 3)
+            self.state = s._replace(
+                position=pos_p[:n_state],
+                velocity=torch.stack([v[:n_state] for v in v_cols], dim=-1),
+                tile_id=tid[:n_state], valid=valid_p[:n_state])
+            if self.repair:
+                self._rebuild_free_list()
 
     def step(self, n: int = 1) -> None:
         """Advance ``n`` steps with the reference's resort cadence: without
@@ -568,39 +598,40 @@ class SortedElectrostaticPIC:
         the next window, whose resort runs at the start of a later call.
         With repair the resort runs at the start of a window, and a call
         ends with the drain check."""
-        step_once = (self._step_pallas if self.backend == "pallas"
-                     else self._step_xla)
-        done = 0
-        while done < n:
-            if self._since_sort >= self.resort_every or self._need_resort:
-                self._resort()
-                self._since_sort = 0
-                self._need_resort = False
-            if (not self.repair and self._since_sort == 0
-                    and n - done >= self.resort_every
-                    and self.resort_every <= 128):
-                for _ in range(self.resort_every):
+        with span("step"):
+            step_once = (self._step_pallas if self.backend == "pallas"
+                         else self._step_xla)
+            done = 0
+            while done < n:
+                if self._since_sort >= self.resort_every or self._need_resort:
+                    self._resort()
+                    self._since_sort = 0
+                    self._need_resort = False
+                if (not self.repair and self._since_sort == 0
+                        and n - done >= self.resort_every
+                        and self.resort_every <= 128):
+                    for _ in range(self.resort_every):
+                        step_once()
+                    self._resort()
+                    done += self.resort_every
+                    continue
+                k = min(n - done, self.resort_every - self._since_sort)
+                for _ in range(k):
                     step_once()
-                self._resort()
-                done += self.resort_every
-                continue
-            k = min(n - done, self.resort_every - self._since_sort)
-            for _ in range(k):
-                step_once()
-            self._since_sort += k
-            done += k
-        if self.repair:
-            # a small unplaced trickle is normal (a row whose target tile
-            # is full keeps its exact patch and retries); a large delta
-            # means the stacks drained: resort at the next call.  Scaled to
-            # the buffer that carries the flux (eager configurations ride
-            # eager_capacity)
-            cap = max(self.spill_capacity,
-                      self.eager_capacity if self.repair_eager else 0)
-            self._need_resort, self._unplaced_seen, _ = drain_check(
-                self.state, self._unplaced_seen, 0, cap, self.n_real, n)
-        if self.check_spill:
-            self._check_spill()
+                self._since_sort += k
+                done += k
+            if self.repair:
+                # a small unplaced trickle is normal (a row whose target tile
+                # is full keeps its exact patch and retries); a large delta
+                # means the stacks drained: resort at the next call.  Scaled to
+                # the buffer that carries the flux (eager configurations ride
+                # eager_capacity)
+                cap = max(self.spill_capacity,
+                          self.eager_capacity if self.repair_eager else 0)
+                self._need_resort, self._unplaced_seen, _ = drain_check(
+                    self.state, self._unplaced_seen, 0, cap, self.n_real, n)
+            if self.check_spill:
+                self._check_spill()
 
     def energies(self) -> dict[str, float]:
         cfg = self.config

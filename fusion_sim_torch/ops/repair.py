@@ -38,6 +38,7 @@ import warnings
 
 import torch
 
+from ..utils.profiling import span
 from .interp import spill_rows
 from .sorted_deposit import tile_ids, tile_ids_3d
 
@@ -420,10 +421,17 @@ def drain_check(state, unplaced_seen: int, overflow_seen: int,
     (relocations found their tile's stack empty), or when ``overflow``
     (migration arrivals dropped, the sharded shells) grew at all.  ``state``
     needs ``unplaced``; ``overflow`` counts as 0 where it has none.
-    Returns ``(need_resort, unplaced_seen', overflow_seen')``."""
-    unplaced = int(torch.as_tensor(state.unplaced).sum())
-    ovf = getattr(state, "overflow", None)
-    overflow = 0 if ovf is None else int(torch.as_tensor(ovf).sum())
+    Returns ``(need_resort, unplaced_seen', overflow_seen')``.  Under a
+    profiler the check is the ``fusion_sim.drain_check`` span, with each
+    read in a ``fusion_sim.host_read``."""
+    with span("drain_check"):
+        with span("host_read"):
+            unplaced = int(torch.as_tensor(state.unplaced).sum())
+        ovf = getattr(state, "overflow", None)
+        overflow = 0
+        if ovf is not None:
+            with span("host_read"):
+                overflow = int(torch.as_tensor(ovf).sum())
     d_unpl = unplaced - unplaced_seen
     d_ovf = overflow - overflow_seen
     need = d_unpl > max(64, min(spill_capacity,

@@ -1,0 +1,14 @@
+"""Rows a step that took the exact spill patch, min(spill, capacity):
+the program's ``rows_patched`` counter over the traced segment's
+recording (``fusion_sim_torch.utils.profiling.counters()``), which the
+checked steps after it, run with no profiler, leave as it was."""
+
+
+def read(ctx):
+    if not ctx.trace.device_ops:
+        return None
+    from fusion_sim_torch.utils import profiling
+
+    counters = getattr(profiling, "counters", None)
+    n = None if counters is None else counters().get("rows_patched")
+    return None if n is None else n / ctx.trace.steps

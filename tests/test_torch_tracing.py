@@ -1,0 +1,172 @@
+"""The program's own spans and counters (``fusion_sim_torch/utils/
+profiling.py``: ``span``, ``count``, ``counters``) in the two PIC shells
+that the benchmark runs, on tiny models on the CPU.
+
+Four models: the ES shell on its pallas path under resort and under
+repair, the EM shell on its fused path under resort and under repair, at
+``port_bench/tests/tiny.py``'s sizes with a one-cell sort margin and a
+hot plasma, so that rows spill from the first steps.  Each is stepped
+under ``torch.profiler`` (CPU activity) beside an untraced twin built
+from the same inputs."""
+
+import contextlib
+import copy
+import json
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from fusion_sim_torch.utils import profiling
+from port_bench import harness, inputs
+from port_bench.tests.tiny import tiny_config
+from torch_ranks import one_torch_thread  # noqa: F401
+
+LEAVES = {"fusion_sim." + n for n in ("solve", "fields", "kernel", "patch",
+                                      "repair", "finish", "resort",
+                                      "drain_check")}
+SEED = 2 ** 33 + 11
+# model: (the benchmark's configuration, by a cell of it; layout; thermal
+# speed; the resort layout's patch capacity, small enough that some rows
+# are dropped)
+MODELS = {
+    "es_resort": ("es2d-512sq-10m.thermal-resort", "resort", 1.0, 512),
+    "es_repair": ("es2d-512sq-10m.thermal-resort", "repair", 1.0, None),
+    "em_resort": ("em3d-128cube-30m.thermal-resort", "resort", 1.0, 128),
+    "em_repair": ("em3d-128cube-30m.thermal-repair", "repair", 1.0, None),
+}
+
+
+def _build(name):
+    workload, layout, v_th, cap = MODELS[name]
+    config = tiny_config(workload)
+    config["tiling"]["margin"] = 1
+    lay = copy.deepcopy(config["layouts"][layout])
+    if cap is not None:
+        lay["shell"]["spill_capacity"] = cap
+    traffic = {"layout": layout,
+               "populations": [{"share": 1.0, "v_thermal": v_th}]}
+    x, v = inputs.make(config, traffic, SEED, "cpu")
+    return harness.kind(config).build(config, lay, x.numpy(), v.numpy(),
+                                      torch.device("cpu"))
+
+
+def _ancestors(event):
+    out, e = [], event.cpu_parent
+    while e is not None:
+        out.append(e.name)
+        e = e.cpu_parent
+    return out
+
+
+@pytest.fixture(scope="module", params=sorted(MODELS))
+def recording(request):
+    """A model stepped ``calls`` times by ``step(1)`` under the profiler
+    from its build, and its twin stepped untraced."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        sim, twin = _build(request.param), _build(request.param)
+        repair = sim.repair
+        calls = 4 if repair else 2 * sim.resort_every + 1
+        s0 = sim.state
+        due = []
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(calls):
+                due.append(sim._since_sort >= sim.resort_every
+                           or sim._need_resort)
+                sim.step(1)
+        counts = profiling.counters()
+        for _ in range(calls):
+            twin.step(1)
+        yield dict(name=request.param, sim=sim, twin=twin, s0=s0,
+                   calls=calls, repair=repair, due=sum(due),
+                   events=list(prof.events()), counts=counts)
+    finally:
+        torch.set_num_threads(saved)
+
+
+def test_span_off_is_the_shared_noop():
+    sim = _build("es_resort")
+    before = profiling.counters()
+    a, b = profiling.span("step"), profiling.span("patch")
+    assert a is b and isinstance(a, contextlib.nullcontext)
+    profiling.count("rows_patched", 5)
+    sim.step(2)
+    assert profiling.counters() == before
+
+
+def test_every_op_in_a_step_has_one_leaf_phase(recording):
+    seen = 0
+    for e in recording["events"]:
+        if not e.name.startswith("aten::"):
+            continue
+        up = _ancestors(e)
+        if "fusion_sim.step" not in up:
+            continue
+        seen += 1
+        leaves = [a for a in up if a in LEAVES]
+        assert len(leaves) == 1, (e.name, up)
+    assert seen > 0
+
+
+def test_span_counts(recording):
+    n = {}
+    for e in recording["events"]:
+        if e.name.startswith("fusion_sim."):
+            n[e.name] = n.get(e.name, 0) + 1
+    calls = recording["calls"]
+    assert n["fusion_sim.step"] == calls
+    # the spill count a step, and with repair the drain check's read
+    assert n["fusion_sim.host_read"] == calls * (2 if recording["repair"]
+                                                 else 1)
+    if recording["repair"]:
+        assert n["fusion_sim.drain_check"] == calls
+        assert n.get("fusion_sim.resort", 0) == recording["due"]
+    else:
+        assert n["fusion_sim.resort"] == 2 == recording["due"]
+    assert set(n) <= LEAVES | {"fusion_sim.step", "fusion_sim.host_read"}
+
+
+def test_rows_patched_is_the_state_delta(recording):
+    s0, s1 = recording["s0"], recording["sim"].state
+    patched = (s1.spill - s0.spill) - (s1.spill_dropped - s0.spill_dropped)
+    assert patched > 0
+    assert recording["counts"]["rows_patched"] == patched
+    if not recording["repair"]:
+        assert s1.spill_dropped > s0.spill_dropped   # min(spill, capacity)
+
+
+def test_traced_state_is_bit_identical(recording):
+    a, b = recording["sim"].state, recording["twin"].state
+    for key, x in a._asdict().items():
+        y = getattr(b, key)
+        if torch.is_tensor(x):
+            assert torch.equal(x, y), key
+        else:
+            assert x == y, key
+
+
+def test_a_new_recording_resets_the_counters():
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count("rows_patched", 3)
+        profiling.count("rows_patched", 4)
+    assert profiling.counters() == {"rows_patched": 7}
+    profiling.span("step")              # a call that sees no profiler
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count("other", 1)
+    assert profiling.counters() == {"other": 1}
+
+
+def test_trace_resets_and_writes_counters(tmp_path):
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count("before", 1)
+    # no call between the two recordings saw the profiler off
+    with profiling.trace(str(tmp_path)):
+        with profiling.span("step"):
+            profiling.count("rows_patched", 2)
+    assert json.loads((tmp_path / "counters.json").read_text()) \
+        == {"rows_patched": 2}
+    names = {e.get("name") for e in json.loads(
+        (tmp_path / "trace.json").read_text())["traceEvents"]}
+    assert "fusion_sim.step" in names
