@@ -28,10 +28,11 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                7, the corners through L1), then small 3D ES and EM runs on
                the card against the CPU across resorts; the B4, B5 and B3
                cases of tests/test_torch_kernels_cuda.py in a process of
-               their own (B4: each of its forms by window, on tiles of ~20
-               blocks, the EM rungs' windows, rows by cell, windows read
-               through L1, heavy spill, the repair layout and the refused
-               window; B5: empty tiles, tiles of one block and
+               their own (the bucket resort against the sort on 2D and 3D
+               tilings, bit for bit; B4: each of its forms by window, on
+               tiles of ~20 blocks, the EM rungs' windows, rows by cell,
+               windows read through L1, heavy spill, the repair layout and
+               the refused window; B5: empty tiles, tiles of one block and
                of twenty, sentinel blocks, rows by tile, by cell and
                shuffled inside each tile, heavy spill, the largest windows
                and the smallest refused one; B3: 1, 3, 6, 12 and 13 channels in
@@ -96,9 +97,20 @@ Phases 4-11 build their sims through the port's bench and example builders
                with a 3D config at the same size (cell 0.5, dt 0.1, charge
                -0.01, mass 0.01, centered gather, the same tiling, resort
                every 6): one warm window, three timed windows; B6 launches,
-               drops, validity, finiteness and Gauss's law checked, B6
+               the bucket resort's (3 a resort; also in phase 4), drops,
+               validity, finiteness and Gauss's law checked, B6
                timed against its plain version and its bound on the path's
                own inputs, one profiled window;
+8b. resort   — the bucket resort (``csrc/tile_bucket.cu``) on the state of
+               each resort cell of ``port_bench`` after a window (ES 2D
+               9,999,360 particles on 512^2, tile 32, block 1024; EM 3D
+               29,997,056 and 419,958,784 on 128^3, tile 8^3, block 512;
+               the state laid out by tile and drifted as a window drifts
+               it): held bit for bit against the sort
+               (``build_padded_layout_plain``), then both timed beside the
+               resort's byte bound (a row read and written once) and the
+               two-pass design's floor (the count reads it once more);
+               the launches reported are the main path's (phases 4, 8);
 9. X1        — the contraction-depth experiment's default sweep at full
                size (S = 305, G = 32, m = 96, p = 1024; both orders, both
                precisions, K in {24, 32, 48, 96, 128}) through
@@ -293,6 +305,17 @@ def zero_counts(kernel_modules) -> None:
         getattr(mod, "FORM_LAUNCHES", {}).clear()
 
 
+def resort_launches(kernel_modules, resorts: int, where: str) -> int:
+    """The bucket resort's launches since ``zero_counts``: three a resort on
+    a main path with rows by tile."""
+    tb = next(m for m in kernel_modules
+              if m.__name__.endswith(".tile_bucket"))
+    if tb.LAUNCHES != 3 * resorts:
+        raise AssertionError(f"{where}: bucket resort launches "
+                             f"{tb.LAUNCHES} != 3 x {resorts} resorts")
+    return tb.LAUNCHES
+
+
 def bound(bytes_moved: float, ops: float):
     """(ms, 'bytes'|'operations'): the larger of bytes over the H100's
     memory rate and f32 operations over its peak f32 rate."""
@@ -461,6 +484,7 @@ def phase4_es_main(torch, es, fp, smi, kernel_modules):
     launches = fp.LAUNCHES
     if launches != steps:
         raise AssertionError(f"kernel launches {launches} != steps {steps}")
+    resorted = resort_launches(kernel_modules, steps // resort, "4 ES")
     st = sim.state
     if st.spill_dropped != 0:
         raise AssertionError(f"{st.spill_dropped} spilled rows dropped")
@@ -480,7 +504,8 @@ def phase4_es_main(torch, es, fp, smi, kernel_modules):
     log("4 ES", f"{smi}: {steps} timed steps, windows "
                 f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, median "
                 f"{rate:.3f} steps/s = {rate * n:.4g} particle updates/s; "
-                f"launches {launches}; spill patched {st.spill}, dropped "
+                f"launches {launches}, bucket resort {resorted}; spill "
+                f"patched {st.spill}, dropped "
                 f"{st.spill_dropped}; charge error {rel:.3g} relative; peak "
                 f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -532,7 +557,7 @@ def phase4_es_main(torch, es, fp, smi, kernel_modules):
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }, ablations
+    }, ablations, resorted
 
 
 # -- pusher (kernels B2, B3) ----------------------------------------------------
@@ -737,21 +762,21 @@ def phase3_card_cases() -> None:
     blocks, rows by tile, by cell and shuffled inside each tile, heavy
     spill, the largest windows and the smallest refused one; B3 with 1, 3,
     6, 12 and 13 channels in both modes and at the edges of its periodic
-    wrap."""
+    wrap; the bucket resort against the sort, bit for bit."""
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
          "-p", "no:cacheprovider", "tests/test_torch_kernels_cuda.py", "-k",
-         "em2d or es3d or gather2d or 3d_kernels_reject"],
+         "em2d or es3d or gather2d or 3d_kernels_reject or tile_bucket"],
         cwd=HERE, capture_output=True, text=True, timeout=600)
     lines = out.stdout.strip().splitlines()
     if out.returncode != 0 or not lines or "passed" not in lines[-1] \
             or "skipped" in lines[-1] or "failed" in lines[-1]:
-        raise AssertionError("the B4/B5/B3 card cases failed:\n"
+        raise AssertionError("the B4/B5/B3/resort card cases failed:\n"
                              + "\n".join(lines[-40:]) + out.stderr[-2000:])
-    log("3 kernels", f"B4, B5 and B3 card cases (tests/test_torch_kernels_"
-                     f"cuda.py): {lines[-1]} ({time.perf_counter() - t0:.1f} "
-                     f"s)")
+    log("3 kernels", f"B4, B5, B3 and resort card cases (tests/test_torch_"
+                     f"kernels_cuda.py): {lines[-1]} "
+                     f"({time.perf_counter() - t0:.1f} s)")
 
 
 def run_windows(torch, sim, windows: int, cadence: int):
@@ -1549,6 +1574,7 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
     steps = windows * resort
     if launches != steps:
         raise AssertionError(f"B6 launches {launches} != steps {steps}")
+    resorted = resort_launches(kernel_modules, windows, "8 EM 3D")
     st = sim.state
     check_em_state(torch, st, n)
     r1 = sorted_gauss_residual(torch, em, sim)
@@ -1559,7 +1585,8 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
     log("8 EM 3D", f"{smi}: {steps} timed steps, windows "
                    f"{', '.join(f'{r:.3f}' for r in rates)} steps/s, median "
                    f"{rate:.3f} steps/s = {rate * n:.4g} particle updates/s; "
-                   f"B6 launches {launches}; spill patched {st.spill}, "
+                   f"B6 launches {launches}, bucket resort {resorted}; "
+                   f"spill patched {st.spill}, "
                    f"dropped {st.spill_dropped} (capacity {spill_capacity}); "
                    f"Gauss residual {r0:.6g} -> {r1:.6g} over {st.step} "
                    f"steps; field energy {en['field']:.6g}, kinetic "
@@ -1598,7 +1625,114 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }
+    }, resorted
+
+
+# -- 8b. the bucket resort on each resort cell's state ------------------------
+
+# label, particles, grid, tile, block, margin, velocity components, drift in
+# cells over a window (ES: 0.2 a step for 12 steps; EM: 0.01 for 6)
+RESORT_CELLS = (
+    ("ES 2D 10M", 9_999_360, (512, 512), (32, 32), 1024, 6, 2, 2.4),
+    ("EM 3D 30M", 29_997_056, (128,) * 3, (8, 8, 8), 512, 2, 3, 0.06),
+    ("EM 3D 420M", 419_958_784, (128,) * 3, (8, 8, 8), 512, 2, 3, 0.06),
+)
+
+
+def resort_bound_ms(rows: int, fillers: int, dims: int, vdim: int,
+                    n_keys: int, n_chunks: int):
+    """(ms, 'bytes', bytes, floor_ms): the resort's least time.  A row is
+    read once (position, velocity, valid) and written once (with tile_id,
+    4 B, and valid, 1 B), a filler row is written, and the int32 count
+    matrix is written, scanned (read and written) and read once.
+    ``floor_ms`` is this two-pass design's floor: the count pass reads each
+    row's position and valid again."""
+    row = 4 * (dims + vdim)
+    moved = (rows * ((row + 1) + (row + 5)) + fillers * (row + 5)
+             + 4 * 4 * n_keys * (n_chunks + 1))
+    ms, by = bound(moved, 0)
+    floor_ms, _ = bound(moved + rows * (4 * dims + 1), 0)
+    return ms, by, moved, floor_ms
+
+
+def phase8b_resort(torch, smi, main_launches):
+    """The bucket resort against the sort on each resort cell's state after
+    a window; returns the kernel entries, whose launches are those counted
+    on the cell's main path (``main_launches``, by label: phases 4 and 8)
+    or, where chip_smoke drives none, those of this phase."""
+    from fusion_sim_torch.ops import tile_bucket as tb
+    from fusion_sim_torch.ops.sorted_deposit import (
+        Tiling2D, Tiling3D, build_padded_layout, build_padded_layout_plain)
+
+    def bits(t):    # floats as their raw bits: NaN and -0.0 exactly
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    dev = torch.device("cuda")
+    entries = []
+    for label, n, shape, tile, block, margin, vdim, drift in RESORT_CELLS:
+        dims = len(shape)
+        tiling = (Tiling2D(*tile, block, margin=margin) if dims == 2
+                  else Tiling3D(tile, block, margin=margin))
+        n_tiles = math.prod(tiling.n_tiles(shape))
+        gen = torch.Generator(device=dev).manual_seed(19)
+        ext = torch.tensor(shape, dtype=torch.float32, device=dev)
+        pos = torch.rand((n, dims), generator=gen, device=dev) * ext
+        vel = torch.randn((n, vdim), generator=gen, device=dev)
+        _, pos, vel, valid, _ = build_padded_layout(pos, shape, tiling, vel,
+                                                    derive_valid=True)
+        pos = torch.remainder(pos + drift * vel[:, :dims], ext)
+        rows = pos.shape[0]
+        torch.cuda.synchronize()
+
+        def layout(build):
+            return lambda: build(pos, shape, tiling, vel, valid=valid,
+                                 derive_valid=True)
+        tb.LAUNCHES = 0
+        got = layout(build_padded_layout)()
+        if tb.LAUNCHES != 3:
+            raise AssertionError(f"{label}: the resort did not launch the "
+                                 f"bucket kernel")
+        want = layout(build_padded_layout_plain)()
+        err = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.dtype != b.dtype or a.shape != b.shape \
+                    or not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"{label}: the bucket resort differs "
+                                     f"from the sort in output {i}")
+            if a.is_floating_point():
+                err = max(err, float(torch.sub(a, b).abs_()
+                                     .nan_to_num_(0.0).max()))
+        del got, want
+        torch.cuda.empty_cache()
+        k_ms = median_ms(torch, layout(build_padded_layout), reps=10)
+        here = tb.LAUNCHES
+        p_ms = median_ms(torch, layout(build_padded_layout_plain), reps=3,
+                         warm=1)
+        _, n_chunks = tb.chunking(rows, n_tiles + 1)
+        b_ms, b_by, b_bytes, floor_ms = resort_bound_ms(
+            rows, n_tiles * block, dims, vdim, n_tiles + 1, n_chunks)
+        rate = b_bytes / (k_ms * 1e-3) / 1e9
+        launches = main_launches.get(label, here)
+        log("8b resort", f"{smi}: {label}, {rows} rows (drift {drift} "
+                         f"cells): bit for bit against the sort (max abs "
+                         f"err {err}); bucket kernel {k_ms:.4f} ms "
+                         f"({rate:.1f} GB/s effective), sort {p_ms:.4f} ms, "
+                         f"bound {b_ms:.4f} ms ({b_by}; the two-pass "
+                         f"design's floor {floor_ms:.4f} ms); launches "
+                         f"{here} here"
+                         + (f", {launches} on the main path"
+                            if label in main_launches else ""))
+        entries.append({
+            "name": f"tile_bucket:{label}", "route": "cuda",
+            "source": "fusion_sim_torch/csrc/tile_bucket.cu",
+            "replaces": "none (the reference resorts with lax.sort)",
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+        del pos, vel, valid
+        torch.cuda.empty_cache()
+    return entries
 
 
 # -- phase 3, the paths of this slice: X1 and small runs against the CPU ------
@@ -2078,14 +2212,17 @@ def phase12_viewer(torch, sp, fpu, smi, kernel_modules, dev="cuda",
         launches = fpu.LAUNCHES
         others = {m.__name__.split(".")[-1]: m.LAUNCHES
                   for m in kernel_modules if m is not fpu and m.LAUNCHES}
-        if steps != 40 or launches != 40 or others:
+        resorted = others.pop("tile_bucket", 0)
+        if steps != 40 or launches != 40 or others or resorted % 3:
             raise AssertionError(f"/api/step: steps {steps}, B2 launches "
                                  f"{launches} (expected 2 x 20), other "
-                                 f"kernels {others}")
+                                 f"kernels {others}, bucket resort "
+                                 f"{resorted} (3 a resort)")
         log("12 viewer", f"{smi}: POST /api/step n=20 (with its render, "
                          f"PNG and diagnostics sample) {dt:.3f} s = "
                          f"{20 / dt:.3f} steps/s = {2 * n * 20 / dt:.4g} "
-                         f"pushes/s; B2 launches {launches} (2 a step)")
+                         f"pushes/s; B2 launches {launches} (2 a step), "
+                         f"bucket resort {resorted}")
 
         zero_counts(kernel_modules)
         s0 = http.state()["steps"]
@@ -3521,6 +3658,7 @@ def main() -> None:
         from fusion_sim_torch.ops import fused_pusher as fpu
         from fusion_sim_torch.ops import solvers
         from fusion_sim_torch.ops import sorted_gather as sg
+        from fusion_sim_torch.ops import tile_bucket as tb
         from fusion_sim_torch.ops.sorted_deposit import (Tiling2D, Tiling3D,
                                                          build_padded_layout)
     except ImportError as exc:
@@ -3567,8 +3705,9 @@ def main() -> None:
     log("3 kernels", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 4. the ES main path ----------------------------------------------------
-    kernel_modules = (fp, fpu, sg, fe, f3, fe3, cd)
-    b1, b1_ablations = phase4_es_main(torch, es, fp, smi, kernel_modules)
+    kernel_modules = (fp, fpu, sg, fe, f3, fe3, cd, tb)
+    b1, b1_ablations, es_resorted = phase4_es_main(torch, es, fp, smi,
+                                                   kernel_modules)
     torch.cuda.empty_cache()
     log("4 ES", f"done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3594,9 +3733,13 @@ def main() -> None:
     b5 = phase7_es3d_main(torch, es, f3, smi, kernel_modules)
     torch.cuda.empty_cache()
     log("7 ES 3D", f"done at {time.perf_counter() - t_start:.1f} s")
-    b6 = phase8_em3d_main(torch, em, fe3, smi, kernel_modules)
+    b6, em_resorted = phase8_em3d_main(torch, em, fe3, smi, kernel_modules)
     torch.cuda.empty_cache()
     log("8 EM 3D", f"done at {time.perf_counter() - t_start:.1f} s")
+    resorts = phase8b_resort(torch, smi, {"ES 2D 10M": es_resorted,
+                                          "EM 3D 30M": em_resorted})
+    torch.cuda.empty_cache()
+    log("8b resort", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 9. X1 at full size, 10. the fast path, 11. the EM repair rung --------
     x1 = phase9_x1(torch, cd, mx, smi, kernel_modules)
@@ -3644,7 +3787,8 @@ def main() -> None:
         if not entry["launches"]:
             raise AssertionError(f"no launch of {entry['name']}")
     print(json.dumps({"kernels": [b1, *b1_ablations, b2, *b3, b4, b3_em, b5,
-                                  b6, x1, *sharded, *dry]}), flush=True)
+                                  b6, *resorts, x1, *sharded, *dry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

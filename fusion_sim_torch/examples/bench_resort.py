@@ -12,11 +12,15 @@ resort sees):
   payload column;
 * the same on int32 keys, the type the port's layout sorts when the keys
   fit (``ops/sorted_deposit.tile_cell_keys``);
-* the port's own resort, ``build_padded_layout``, on positions drawn in
-  the tiles of those keys (``--dim 2``: 512^2, ``Tiling2D(32, 32, 1024,
-  margin 6)``; ``--dim 3``: 128^3, ``Tiling3D((8, 8, 8), 512, margin
-  2)`` by cell, the ES 3D shell's), ``--payloads - 2`` payload columns
-  besides the position.
+* the port's own resort, ``build_padded_layout``, on the state of a built
+  layout after a drift of ~0.2 cells (what a cadence resort sees), both
+  ways on the same input: rows by tile on the card through the bucket
+  kernel (``ops/tile_bucket.py``) and through the stable sort
+  (``build_padded_layout_plain``), checked row for row (``--dim 2``:
+  512^2, ``Tiling2D(32, 32, 1024, margin 6)``, velocity (N, 2), the ES 2D
+  shell's; ``--dim 3``: 128^3, ``Tiling3D((8, 8, 8), 512, margin 2)``,
+  velocity (N, 3), the EM 3D shell's, and rows by cell, the ES 3D
+  shell's, which keeps the sort).
 
     python -m fusion_sim_torch.examples.bench_resort --n 12582912 \\
         --payloads 6
@@ -30,23 +34,31 @@ import numpy as np
 import torch
 
 from .._device import device_name, resolve_device
-from ..ops.sorted_deposit import Tiling2D, Tiling3D, build_padded_layout
+from ..ops.sorted_deposit import (Tiling2D, Tiling3D, build_padded_layout,
+                                  build_padded_layout_plain)
 from .kernel_pair import median_ms
 
 
 def layout_case(n: int, dim: int, dev):
-    """(shape, tiling, positions, cell_order) of ``--dim``'s resort."""
+    """(shape, tiling, position, velocity, valid): a layout's state of
+    ``n`` rows (random positions laid out by tile, cut to ``n`` rows), each
+    row then drifted by ~0.2 cells."""
     if dim == 2:
-        shape = (512, 512)
-        tiling, cell_order = Tiling2D(32, 32, 1024, margin=6), False
+        shape, tiling = (512, 512), Tiling2D(32, 32, 1024, margin=6)
     else:
         shape = (128, 128, 128)
         tiling = Tiling3D(tile=(8, 8, 8), block=512, margin=2)
-        cell_order = True
     rng = np.random.default_rng(1)
+    ext = torch.tensor(shape, dtype=torch.float32, device=dev)
     pos = torch.tensor((rng.random((n, dim)) * shape).astype(np.float32),
                        device=dev)
-    return shape, tiling, pos, cell_order
+    vel = torch.tensor(rng.standard_normal((n, dim)).astype(np.float32),
+                       device=dev)
+    _, pos, vel, valid, _ = build_padded_layout_plain(
+        pos, shape, tiling, vel, derive_valid=True)
+    pos, vel, valid = pos[:n], vel[:n], valid[:n]
+    pos = torch.remainder(pos + 0.2 * vel, ext)
+    return shape, tiling, pos, vel, valid
 
 
 def main(argv=None) -> dict:
@@ -57,7 +69,7 @@ def main(argv=None) -> dict:
                          "pos r/z + vel r/z + weights + spare)")
     ap.add_argument("--tiles", type=int, default=256)
     ap.add_argument("--dim", type=int, default=2, choices=(2, 3),
-                    help="the layout of the build_padded_layout form")
+                    help="the layout of the build_padded_layout forms")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--device", default=None,
                     help="'cpu' runs on the CPU (default: the card)")
@@ -89,14 +101,29 @@ def main(argv=None) -> dict:
     print(f"key+index sort (int64), {npay} column takes : {t64:7.3f} ms")
     print(f"key+index sort (int32), {npay} column takes : {t32:7.3f} ms")
 
-    shape, tiling, pos, cell_order = layout_case(n, args.dim, dev)
-    cols = pays[:max(npay - 2, 0)]
-    t_layout = ms(lambda: build_padded_layout(pos, shape, tiling, *cols,
-                                              cell_order=cell_order))
-    print(f"build_padded_layout ({args.dim}D, {len(cols)} payloads"
-          f"{', by cell' if cell_order else ''}) : {t_layout:7.3f} ms")
-    return {"sort64_ms": t64, "sort32_ms": t32, "layout_ms": t_layout}
+    shape, tiling, pos, vel, valid = layout_case(n, args.dim, dev)
 
+    def layout(build, cell_order=False):
+        return lambda: build(pos, shape, tiling, vel, valid=valid,
+                             derive_valid=True, cell_order=cell_order)
+
+    got = layout(build_padded_layout)()
+    want = layout(build_padded_layout_plain)()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    del got, want
+    t_bucket = ms(layout(build_padded_layout))
+    t_sort = ms(layout(build_padded_layout_plain))
+    print(f"build_padded_layout ({args.dim}D, rows by tile, velocity "
+          f"(N, {args.dim})) : bucket kernel {t_bucket:7.3f} ms"
+          f"{' (on the CPU: the sort)' if dev.type == 'cpu' else ''}, "
+          f"sort {t_sort:7.3f} ms, the same rows: {same}")
+    out = {"sort64_ms": t64, "sort32_ms": t32, "layout_ms": t_bucket,
+           "layout_sort_ms": t_sort, "same_rows": same}
+    if args.dim == 3:
+        out["layout_by_cell_ms"] = ms(layout(build_padded_layout, True))
+        print(f"build_padded_layout (3D, rows by cell, the sort) : "
+              f"{out['layout_by_cell_ms']:7.3f} ms")
+    return out
 
 if __name__ == "__main__":
     main()

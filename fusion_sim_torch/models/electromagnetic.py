@@ -479,13 +479,12 @@ class SortedElectromagneticPIC:
             device=dev)
         vel = torch.as_tensor(np.asarray(velocity, np.float32).reshape(n, 3),
                               device=dev)
-        tid, pos_p, v0, v1, v2, valid_p, _ = build_padded_layout(
-            pos, shape, self.tiling, vel[:, 0], vel[:, 1], vel[:, 2],
-            reserve=repair, spread=repair, derive_valid=True,
-            cell_order=self._cell_order)
+        tid, pos_p, vel_p, valid_p, _ = build_padded_layout(
+            pos, shape, self.tiling, vel, reserve=repair, spread=repair,
+            derive_valid=True, cell_order=self._cell_order)
         self.state = SortedEMState(
-            position=pos_p, velocity=torch.stack([v0, v1, v2], dim=-1),
-            tile_id=tid, valid=valid_p, e=_fields_from(e, shape, dev),
+            position=pos_p, velocity=vel_p, tile_id=tid, valid=valid_p,
+            e=_fields_from(e, shape, dev),
             b=_fields_from(b, shape, dev), step=0, spill=0, spill_dropped=0)
         self.n_real = n
         self._repair_state()
@@ -695,15 +694,12 @@ class SortedElectromagneticPIC:
         with span("resort"):
             s = self.state
             n_state = s.position.shape[0]
-            tid, pos_p, v0, v1, v2, valid_p, _ = build_padded_layout(
-                s.position, self.config.grid_shape, self.tiling,
-                s.velocity[:, 0], s.velocity[:, 1], s.velocity[:, 2],
+            tid, pos_p, vel_p, valid_p, _ = build_padded_layout(
+                s.position, self.config.grid_shape, self.tiling, s.velocity,
                 valid=s.valid, reserve=self.repair, spread=self.repair,
                 derive_valid=True, cell_order=self._cell_order)
             self.state = s._replace(
-                position=pos_p[:n_state],
-                velocity=torch.stack([v0[:n_state], v1[:n_state],
-                                      v2[:n_state]], dim=-1),
+                position=pos_p[:n_state], velocity=vel_p[:n_state],
                 tile_id=tid[:n_state], valid=valid_p[:n_state])
             if self.repair:
                 self._rebuild_free_list()

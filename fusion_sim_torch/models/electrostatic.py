@@ -289,13 +289,12 @@ class SortedElectrostaticPIC:
         vel = torch.as_tensor(
             np.asarray(velocity, np.float32).reshape(n, ndim),
             device=self.device)
-        tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
-            pos, config.grid_shape, self.tiling,
-            *[vel[:, a] for a in range(ndim)], reserve=repair,
+        tid, pos_p, vel_p, valid_p, _ = build_padded_layout(
+            pos, config.grid_shape, self.tiling, vel, reserve=repair,
             spread=repair, derive_valid=True, cell_order=ndim == 3)
         self.state = SortedESState(
-            position=pos_p, velocity=torch.stack(v_cols, dim=-1),
-            tile_id=tid, valid=valid_p, step=0, spill=0, spill_dropped=0)
+            position=pos_p, velocity=vel_p, tile_id=tid, valid=valid_p,
+            step=0, spill=0, spill_dropped=0)
         self._finish_state()
 
     def _finish_state(self) -> None:
@@ -579,14 +578,12 @@ class SortedElectrostaticPIC:
         with span("resort"):
             s = self.state
             n_state = s.position.shape[0]
-            tid, pos_p, *v_cols, valid_p, _ = build_padded_layout(
-                s.position, self.config.grid_shape, self.tiling,
-                *s.velocity.unbind(-1), valid=s.valid, reserve=self.repair,
-                spread=self.repair, derive_valid=True,
-                cell_order=self.config.n_dim == 3)
+            tid, pos_p, vel_p, valid_p, _ = build_padded_layout(
+                s.position, self.config.grid_shape, self.tiling, s.velocity,
+                valid=s.valid, reserve=self.repair, spread=self.repair,
+                derive_valid=True, cell_order=self.config.n_dim == 3)
             self.state = s._replace(
-                position=pos_p[:n_state],
-                velocity=torch.stack([v[:n_state] for v in v_cols], dim=-1),
+                position=pos_p[:n_state], velocity=vel_p[:n_state],
                 tile_id=tid[:n_state], valid=valid_p[:n_state])
             if self.repair:
                 self._rebuild_free_list()

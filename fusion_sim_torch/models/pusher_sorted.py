@@ -157,19 +157,15 @@ def make_sorted_resort_fn(spec, tiling: Tiling2D, reserve: bool = False):
         n_state = state.position.shape[0]
         cell = _cell_coords(state.position, nr, nz)
         out = build_padded_layout(
-            cell, (nr, nz), tiling,
-            *[state.position[:, a] for a in range(3)],
-            *[state.velocity[:, a] for a in range(3)],
+            cell, (nr, nz), tiling, state.position, state.velocity,
             state.alive, valid=state.valid, reserve=reserve, spread=reserve,
             derive_valid=True)
-        tid, valid = out[0][:n_state], out[9][:n_state]
+        tid, _, pos, vel, alive, valid = (t[:n_state] for t in out[:-1])
         keep = valid[:, None]
-        pos = torch.stack([c[:n_state] for c in out[2:5]], dim=-1)
-        vel = torch.stack([c[:n_state] for c in out[5:8]], dim=-1)
         return state._replace(
             position=torch.where(keep, pos, _filler(pos.device)),
             velocity=torch.where(keep, vel, 0.0),
-            alive=torch.where(valid, out[8][:n_state], 1.0),
+            alive=torch.where(valid, alive, 1.0),
             valid=valid, tile_id=tid)
 
     return resort

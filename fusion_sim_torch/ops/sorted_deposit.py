@@ -160,6 +160,27 @@ def tile_cell_keys(position: torch.Tensor, shape: tuple[int, ...],
     return (t * ints(coef) + base * ints(cs)).sum(-1, dtype=torch.int32)
 
 
+def tile_pads(counts: torch.Tensor, block: int, total_pad: int,
+              reserve: bool = False, spread: bool = False) -> torch.Tensor:
+    """Filler rows per tile (int64 (n_tiles,)) for tiles of ``counts``
+    real rows: each tile's count padded to a multiple of ``block``, then
+    ``reserve`` and ``spread`` as ``build_padded_layout`` describes them;
+    ``total_pad`` (``n_tiles * block``) is the budget ``spread`` shares."""
+    n_tiles = counts.shape[0]
+    pads = torch.remainder(-counts, block)
+    if reserve:
+        # at most one block a tile: the n_tiles*block budget covers it
+        pads = torch.where(pads == 0, block, pads)
+    if spread:
+        extra_blocks = torch.div(total_pad - pads.sum(), block,
+                                 rounding_mode="floor")
+        rank = torch.argsort(torch.argsort(pads, stable=True), stable=True)
+        pads = pads + (torch.div(extra_blocks, n_tiles, rounding_mode="floor")
+                       + (rank < torch.remainder(extra_blocks, n_tiles))
+                       ) * block
+    return pads
+
+
 def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
                         tiling, *payloads: torch.Tensor,
                         valid: torch.Tensor | None = None,
@@ -174,7 +195,8 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
     dead region with ``tile_id = n_tiles``.  Returns ``(tile_id, position,
     *payloads, n_valid)`` of fixed length ``N + n_tiles*block``; with
     ``derive_valid`` the post-sort validity mask comes before ``n_valid``.
-    ``tile_id`` is int32, like the reference's.
+    ``tile_id`` is int32, like the reference's.  A payload is (N,) or
+    (N, ...) and comes back with its trailing shape.
 
     ``reserve``: every tile keeps at least one filler row (a tile whose
     count would pad to zero gets a whole block of fillers), so that the
@@ -189,11 +211,37 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
     are neighbours; the fused kernels then sum a warp's rows of one cell
     before they add them to the window.  Nothing else changes.
 
-    The sort is a stable ``torch.sort`` of the (tile[, cell], realness)
-    key, then one gather per column; the reference's sort promises no order
-    inside a tile, so the two agree on ``tile_id``/``valid`` and on each
-    tile segment as a set of rows.
+    The order is that of a stable sort of the (tile[, cell], realness) key
+    over the rows and then the filler slots: inside a tile the real rows in
+    row order, then the fillers; the trailing region holds the invalid rows
+    in row order, then the surplus fillers.  The reference's sort promises
+    no order inside a tile, so the two agree on ``tile_id``/``valid`` and on
+    each tile segment as a set of rows.  Rows by tile on the card go
+    through the bucket resort of ``ops/tile_bucket.py`` (a hand-written
+    kernel, the same rows bit for bit); CPU tensors and rows by cell take
+    ``build_padded_layout_plain``.
     """
+    if position.device.type == "cuda" and not cell_order:
+        from . import tile_bucket
+
+        return tile_bucket.padded_layout(position, shape, tiling, payloads,
+                                         valid, reserve, spread,
+                                         derive_valid)
+    return build_padded_layout_plain(
+        position, shape, tiling, *payloads, valid=valid, reserve=reserve,
+        spread=spread, derive_valid=derive_valid, cell_order=cell_order)
+
+
+def build_padded_layout_plain(position: torch.Tensor,
+                              shape: tuple[int, ...], tiling,
+                              *payloads: torch.Tensor,
+                              valid: torch.Tensor | None = None,
+                              reserve: bool = False, spread: bool = False,
+                              derive_valid: bool = False,
+                              cell_order: bool = False):
+    """``build_padded_layout`` in plain PyTorch on any device: a stable
+    ``torch.sort`` of the int32 (or int64) key, then one gather and one
+    zeroing ``where`` a column."""
     n_tiles = math.prod(tiling.n_tiles(shape))
     p_blk = tiling.block
     n = position.shape[0]
@@ -216,17 +264,7 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
         tid = torch.where(valid, tid, n_tiles)
         row_key = torch.where(valid, row_key, n_tiles * cells)
     counts = torch.bincount(tid, minlength=n_tiles + 1)[:n_tiles]
-    pads = torch.remainder(-counts, p_blk)
-    if reserve:
-        # at most one block a tile: the n_tiles*block budget covers it
-        pads = torch.where(pads == 0, p_blk, pads)
-    if spread:
-        extra_blocks = torch.div(total_pad - pads.sum(), p_blk,
-                                 rounding_mode="floor")
-        rank = torch.argsort(torch.argsort(pads, stable=True), stable=True)
-        pads = pads + (torch.div(extra_blocks, n_tiles, rounding_mode="floor")
-                       + (rank < torch.remainder(extra_blocks, n_tiles))
-                       ) * p_blk
+    pads = tile_pads(counts, p_blk, total_pad, reserve, spread)
     cum_pads = torch.cumsum(pads, 0)
     # filler j gets the tile whose cumulative pad range contains j; the
     # surplus beyond cum_pads[-1] sorts to the global end (tile = n_tiles)

@@ -736,3 +736,165 @@ def test_contraction_depth_kernel_rejects_bad_inputs(cuda):
         cd.contraction_depth(torch.zeros((1, 1, 1024, 128), device=cuda),
                              torch.zeros((1, 1, 128, 128), device=cuda),
                              "lhs_k_lanes", "highest")
+
+
+def _bits(t):
+    """A tensor's raw bits, flat (floats as ints: NaN and -0.0 compare
+    exactly)."""
+    t = t.reshape(-1)
+    if t.dtype == torch.bool:
+        return t
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _same_layout(got, want):
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, (i, a.dtype,
+                                                           b.dtype)
+        assert torch.equal(_bits(a), _bits(b)), f"output {i} differs"
+
+
+def _bucket_inputs(dims, order, n, seed, cuda):
+    """Rows for the layout: ``random`` positions (some past the grid on
+    either side), or ``near``, the state of a built layout after a few
+    pushes; tile 0 left empty; invalid rows carry nonzero junk."""
+    from fusion_sim_torch.ops.sorted_deposit import (
+        Tiling3D, build_padded_layout_plain)
+    if dims == 2:
+        shape, tiling = (64, 128), Tiling2D(16, 16, 128, margin=2)
+    else:
+        shape, tiling = (32, 32, 64), Tiling3D((8, 8, 8), 128, margin=2)
+    rng = np.random.default_rng(seed)
+    ext = np.array(shape, np.float32)
+    pos = torch.tensor(rng.random((n, dims)) * ext, dtype=torch.float32,
+                       device=cuda)
+    vel = torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32,
+                       device=cuda)
+    valid = torch.tensor(rng.random(n) < 0.9, device=cuda)
+    if order == "near":
+        _, pos, vel, valid, _ = build_padded_layout_plain(
+            pos, shape, tiling, vel, valid=valid, derive_valid=True)
+        pos, vel, valid = pos[:n], vel[:n], valid[:n]
+        drift = torch.tensor(0.4 * rng.standard_normal((n, dims)),
+                             dtype=torch.float32, device=cuda)
+        pos = torch.remainder(pos + drift, torch.tensor(ext, device=cuda))
+    else:
+        pos[:5] = -0.5
+        pos[5:10] = torch.tensor(ext, device=cuda) + 0.25
+    # tile 0 (the first tile on every axis) left empty
+    tile = (tiling.tile_r, tiling.tile_z) if dims == 2 else tiling.tile
+    in0 = (pos < torch.tensor(tile, device=cuda)).all(-1)
+    pos[in0, 0] = tile[0] + 0.5
+    junk = ~valid
+    pos[junk] = torch.tensor(rng.standard_normal((int(junk.sum()), dims)),
+                             dtype=torch.float32, device=cuda) * 1e3
+    vel[junk] = 7.5
+    w = torch.where(valid, 1.5, -2.0).to(torch.float32)
+    return shape, tiling, pos, vel, valid, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repair", [False, True])
+@pytest.mark.parametrize("order", ["random", "near"])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_tile_bucket_layout_matches_sort(cuda, dims, order, repair):
+    """Rows by tile on the card go through the bucket kernel; the layout is
+    the stable sort's, every output bit for bit, with the velocity whole or
+    as column views, a 1-D payload, with and without ``valid`` and
+    ``derive_valid``; ``N`` (200,064 rows) is not a multiple of the chunk.
+    Rows by cell keep the sort."""
+    from fusion_sim_torch.ops import tile_bucket
+    from fusion_sim_torch.ops.sorted_deposit import build_padded_layout_plain
+    n = 200_064
+    shape, tiling, pos, vel, valid, w = _bucket_inputs(dims, order, n,
+                                                       dims + 5, cuda)
+    n_keys = torch.Size(tiling.n_tiles(shape)).numel() + 1
+    chunk, n_chunks = tile_bucket.chunking(n, n_keys)
+    assert n_chunks > 1 and n % chunk
+    for payloads in ((vel, w), (*vel.unbind(-1), w)):
+        for valid_in in (None, valid):
+            for derive_valid in (False, True):
+                kw = dict(valid=valid_in, reserve=repair, spread=repair,
+                          derive_valid=derive_valid)
+                want = build_padded_layout_plain(pos, shape, tiling,
+                                                 *payloads, **kw)
+                before = tile_bucket.LAUNCHES
+                got = build_padded_layout(pos, shape, tiling, *payloads,
+                                          **kw)
+                assert tile_bucket.LAUNCHES == before + 3
+                torch.cuda.synchronize()
+                _same_layout(got, want)
+    assert int((got[0][got[-2]] == 0).sum()) == 0, "tile 0 not empty"
+    before = tile_bucket.LAUNCHES
+    by_cell = build_padded_layout(pos, shape, tiling, vel, valid=valid,
+                                  derive_valid=True, cell_order=True)
+    assert tile_bucket.LAUNCHES == before
+    _same_layout(by_cell, build_padded_layout_plain(
+        pos, shape, tiling, vel, valid=valid, derive_valid=True,
+        cell_order=True))
+
+
+@pytest.mark.cuda
+def test_tile_bucket_layout_many_tiles(cuda):
+    """16,384 tiles: more keys than the count kernel keeps in shared memory,
+    so it counts with global atomics; most tiles hold a row or two."""
+    from fusion_sim_torch.ops.sorted_deposit import build_padded_layout_plain
+    shape, tiling = (512, 512), Tiling2D(4, 4, 8, margin=1)
+    n = 65_536
+    rng = np.random.default_rng(11)
+    pos = torch.tensor(rng.random((n, 2)) * 512, dtype=torch.float32,
+                       device=cuda)
+    vel = torch.tensor(rng.standard_normal((n, 3)), dtype=torch.float32,
+                       device=cuda)
+    valid = torch.tensor(rng.random(n) < 0.95, device=cuda)
+    for repair in (False, True):
+        kw = dict(valid=valid, reserve=repair, spread=repair,
+                  derive_valid=True)
+        _same_layout(build_padded_layout(pos, shape, tiling, vel, **kw),
+                     build_padded_layout_plain(pos, shape, tiling, vel, **kw))
+
+
+@pytest.mark.cuda
+def test_tile_bucket_layout_counts_under_a_profiler(cuda, tmp_path):
+    """Each layout built through the kernel adds one to
+    ``layouts_bucketed`` while a profiler records; rows by cell add
+    nothing."""
+    import json
+
+    from fusion_sim_torch.utils import profiling
+    shape, tiling, pos, vel, valid, _ = _bucket_inputs(3, "near", 8192, 1,
+                                                       cuda)
+    with profiling.trace(str(tmp_path)):
+        for _ in range(2):
+            build_padded_layout(pos, shape, tiling, vel, valid=valid)
+        build_padded_layout(pos, shape, tiling, vel, valid=valid,
+                            cell_order=True)
+    assert profiling.counters()["layouts_bucketed"] == 2
+    counts = json.loads((tmp_path / "counters.json").read_text())
+    assert counts["layouts_bucketed"] == 2
+
+
+@pytest.mark.cuda
+def test_tile_bucket_layout_rejects_bad_inputs(cuda):
+    shape, tiling = (64, 64), Tiling2D(16, 16, 128, margin=2)
+    pos = torch.rand((1024, 2), device=cuda) * 64
+    with pytest.raises(TypeError, match="float32"):
+        build_padded_layout(pos.double(), shape, tiling)
+    with pytest.raises(ValueError, match="multiple"):
+        build_padded_layout(pos[:1000], shape, tiling)
+    with pytest.raises(ValueError, match="shape"):
+        build_padded_layout(pos, shape, tiling, pos[:512])
+    with pytest.raises(TypeError, match="valid"):
+        build_padded_layout(pos, shape, tiling,
+                            valid=(pos[:, 0] > 1).float())
+    with pytest.raises(ValueError, match="one device"):
+        build_padded_layout(pos, shape, tiling, valid=(pos[:, 0] > 1).cpu())
+    with pytest.raises(TypeError, match="4-byte words"):
+        build_padded_layout(pos, shape, tiling,
+                            torch.zeros((1024,), dtype=torch.bool,
+                                        device=cuda))
+    with pytest.raises(TypeError, match="16 words"):
+        build_padded_layout(pos, shape, tiling,
+                            *[pos.new_zeros((1024, 3))] * 5)

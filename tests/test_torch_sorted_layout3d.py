@@ -160,6 +160,44 @@ def test_tiling3d_validation():
         tp.build_padded_layout(pos[:100], SHAPE, tp.Tiling3D(**TILE))
 
 
+@pytest.mark.parametrize("cell_order", [False, True])
+@pytest.mark.parametrize("reserve", [False, True])
+def test_layout_whole_payload_on_the_plain_path(reserve, cell_order):
+    """CPU tensors (and rows by cell anywhere) take the plain sort and
+    never reach the bucket kernel; an (N, 3) payload comes back as the same
+    rows as its three columns."""
+    from fusion_sim_torch.ops import tile_bucket
+    pos, vel, valid = _particles(seed=5)
+    pos[valid == 0] = 1e4     # invalid rows keep whatever they carry
+    pos_t, vel_t = torch.tensor(pos), torch.tensor(vel)
+    kw = dict(valid=torch.tensor(valid), reserve=reserve, spread=reserve,
+              derive_valid=True, cell_order=cell_order)
+    tt = tp.Tiling3D(**TILE)
+    before = tile_bucket.LAUNCHES
+    whole = tp.build_padded_layout(pos_t, SHAPE, tt, vel_t, **kw)
+    cols = tp.build_padded_layout(pos_t, SHAPE, tt, *vel_t.unbind(-1), **kw)
+    assert tile_bucket.LAUNCHES == before
+    assert whole[2].shape == (pos.shape[0] + 8 * TILE["block"], 3)
+    assert torch.equal(whole[2], torch.stack(cols[2:5], -1))
+    for a, b in zip(whole[:2] + whole[3:], cols[:2] + cols[5:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,n_keys", [(0, 9), (1024, 9), (200_064, 33),
+                                      (10_262_528, 257),
+                                      (424_319_488, 4097), (65_536, 16_385)])
+def test_tile_bucket_chunking(n, n_keys):
+    """The kernel's chunks: every row in one, none empty, at most
+    MAX_CHUNKS of them, and a count matrix of at most 2 B a row beside
+    the keys' own arrays."""
+    from fusion_sim_torch.ops import tile_bucket
+    chunk, n_chunks = tile_bucket.chunking(n, n_keys)
+    assert chunk >= 1
+    assert (n_chunks - 1) * chunk < max(n, 1) <= n_chunks * chunk
+    assert n_chunks <= tile_bucket.MAX_CHUNKS
+    assert 4 * n_keys * (n_chunks + 1) <= 2 * n + 8 * n_keys
+
+
 def _drifted_layout(seed, shift):
     """The reference's layout of random rows, then every third real row
     moved ``shift`` cells along y (past the margin), so those rows spill."""
