@@ -2,7 +2,8 @@
 (``--trace 1``), the check, and the result line.
 
 Set-up builds the model through the port's public constructor from the
-inputs that ``inputs.py`` draws from the seed, takes the reference's
+load drawn from the seed (the kind's own ``inputs`` where it defines
+one, else ``inputs.make``: ``particle_load``), takes the reference's
 moments of the layout it built (timed apart and left out of ``setup_s``)
 and runs the configuration's warm-up steps, which reach every shape the
 window uses (a resort in resort cells, spill equilibrium in repair
@@ -70,6 +71,14 @@ def load_cell(workload: str, bench: dict | None = None) -> Cell:
 
 def kind(config: dict):
     return importlib.import_module(f"{__package__}.kinds.{config['model']}")
+
+
+def particle_load(K, config: dict, traffic: dict, seed: int, device
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The particle load of a run: ``K.inputs`` where the kind defines
+    one, else the common generator ``inputs.make`` (same signature and
+    contract, ``inputs.py``)."""
+    return getattr(K, "inputs", inputs.make)(config, traffic, seed, device)
 
 
 def load_file(folder: str, name: str):
@@ -158,7 +167,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
 
     # -- set-up --------------------------------------------------------------
     phases = {"start": time.perf_counter() - t0}
-    x_in, v_in = inputs.make(config, cell.traffic, seed, dev)
+    x_in, v_in = particle_load(K, config, cell.traffic, seed, dev)
     pos, vel = x_in.cpu().numpy(), v_in.cpu().numpy()
     del x_in, v_in
     phases["inputs"] = time.perf_counter() - t0
@@ -241,7 +250,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
 
     # -- the reference -------------------------------------------------------
     t_check = time.perf_counter()
-    x_in, v_in = inputs.make(config, cell.traffic, seed, dev)
+    x_in, v_in = particle_load(K, config, cell.traffic, seed, dev)
     snaps = {c: (_to(bef, dev), _to(aft, dev))
              for c, (bef, aft) in snaps.items()}
     end = snaps[checked[0]][0]

@@ -1,5 +1,17 @@
-"""The one generator of the benchmark's plasmas: a traffic file's
+"""The common generator of the benchmark's plasmas: a traffic file's
 parameters and ``--seed`` give the particles' positions and velocities.
+
+A kind that needs another load (``port_bench/kinds/<model>.py``)
+defines ``inputs(config, traffic, seed, device)`` with the signature of
+``make``, and the harness draws from it at set-up and again for the
+reference.  Every load, this one and a kind's, keeps to one contract:
+
+- ``x`` is (N, d) float32 on ``device``, in the grid frame that
+  ``check.moments`` reads: grid units, each axis in [0, n) over
+  ``grid_shape``;
+- ``v`` is (N, ``velocity_components``) float32 on ``device``;
+- the draws come from ``--seed`` alone (no other state, no clock), so a
+  seed gives the same load again, and every seed the same sizes.
 
 A traffic file (``port_bench/traffic/<name>.json``) holds:
 
@@ -13,10 +25,8 @@ A traffic file (``port_bench/traffic/<name>.json``) holds:
   particles placed in the box of ``extent`` times each axis at the origin,
   the rest uniform over the grid.
 
-Positions are in grid units, in [0, n) per axis.  The draws come from one
-``torch.Generator`` on the given device, seeded with ``--seed`` modulo
-2**64, in a fixed order, so a seed gives the same plasma again and every
-seed the same sizes.
+``make`` draws from one ``torch.Generator`` on the given device, seeded
+with ``--seed`` modulo 2**64, in a fixed order.
 
 No traffic file uses ``drift``, ``clump`` or a second population yet, and
 only the CPU tests draw them: they are here so that the mixes kept for

@@ -125,7 +125,8 @@ def stall_us(seg: Segment) -> float:
 
 def span_ms_per_step(ctx, name: str) -> float | None:
     """Device time launched under the program span ``fusion_sim.<name>``
-    per step of the segment."""
+    per step of the segment; None where the segment holds no device
+    operation or no such span."""
     t = ctx.trace
     key = "fusion_sim." + name
     if not t.device_ops or not t.span_count.get(key):

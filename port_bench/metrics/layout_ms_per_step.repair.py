@@ -1,11 +1,13 @@
 """Device time of the layout's upkeep under repair, per step: the
-operations launched under the ``repair`` span (``repair_relocate``) and
-the ``resort`` span (the resorts that drained stacks call for)."""
+operations launched under the program's ``fusion_sim.repair`` span
+(``repair_relocate``) and its ``fusion_sim.resort`` span (the resorts
+that drained stacks call for, where the segment holds one)."""
+
+from . import _program
 
 
 def read(ctx):
-    t = ctx.trace
-    if not t.span_count.get("repair") or not t.device_ops:
+    repair = _program.span_ms_per_step(ctx, "repair")
+    if repair is None:
         return None
-    return 1e3 * (t.span_device_s["repair"]
-                  + t.span_device_s.get("resort", 0.0)) / t.steps
+    return repair + (_program.span_ms_per_step(ctx, "resort") or 0.0)

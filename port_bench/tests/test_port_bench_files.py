@@ -1,6 +1,6 @@
 """BENCHMARK.json and the files it names: the contract's shapes, names
-and characters, and every configuration, traffic mix, metric reader,
-roofline and span list found by name."""
+and characters, and every configuration, traffic mix, metric reader and
+roofline found by name."""
 
 import json
 import re
@@ -107,17 +107,6 @@ def test_step_work_and_counters_named():
         for part in config["step_work"]:
             harness.load_file("rooflines", part)
         assert config["kernel"] in config["step_work"]
-
-
-def test_span_lists_resolve():
-    from port_bench import trace
-
-    files = sorted(trace.SPANS.glob("*.json"))
-    assert {p.stem for p in files} == {"resort", "repair", "solve"}
-    for path in files:
-        for module, attr in json.loads(path.read_text())["wrap"]:
-            owner, last = trace._resolve(module, attr)
-            assert callable(getattr(owner, last))
 
 
 def test_paths_hold_only_names():

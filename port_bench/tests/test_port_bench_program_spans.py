@@ -1,9 +1,12 @@
 """The readers of the program's own spans and counter
-(``metrics/_program.py`` and the six metrics that use it): the trace
+(``metrics/_program.py`` and the eleven metrics that use it): the trace
 found by its window, the synchronising calls, their host time and the
-device idle time after them, against hand-counted values of a small
-synthetic chrome trace; and silence on CPU runs."""
+device idle time after them, and the device time under the layout and
+solve spans, against hand-counted values of small synthetic chrome
+traces; the layout and solve readers on the spans of tiny traced runs of
+their cells; and silence on CPU runs."""
 
+import copy
 import gzip
 import json
 from types import SimpleNamespace
@@ -17,7 +20,19 @@ from port_bench.tests.tiny import run_tiny
 
 READERS = ["syncs_per_step", "sync_ms_per_step",
            "sync_stall_ms_per_step.device_bound", "patch_ms_per_step",
-           "rows_patched_per_step", "finish_ms_per_step.device_bound"]
+           "rows_patched_per_step", "finish_ms_per_step.device_bound",
+           "layout_ms_per_step.resort", "layout_ms_per_step.repair",
+           "layout_ms_per_step.resort.host_bound",
+           "solve_ms_per_step", "solve_ms_per_step.device_bound"]
+# the readers of device time under program spans: metric -> its spans
+SPAN_READERS = {"layout_ms_per_step.resort": ("resort",),
+                "layout_ms_per_step.resort.host_bound": ("resort",),
+                "layout_ms_per_step.repair": ("repair", "resort"),
+                "solve_ms_per_step": ("solve",),
+                "solve_ms_per_step.device_bound": ("solve",)}
+BENCH = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
+SPAN_CELLS = sorted({c for m in BENCH["per_layer"] if m["name"] in
+                     SPAN_READERS for c in m["workloads"]})
 
 
 def _x(name, cat, ts, dur, corr=None):
@@ -110,6 +125,96 @@ def test_span_readers_against_hand_counts(synthetic):
     assert _read("patch_ms_per_step", synthetic) == pytest.approx(0.150)
     assert _read("finish_ms_per_step.device_bound", synthetic) \
         == pytest.approx(0.145)
+
+
+def _layout_events(resort=True, repair=True):
+    """Window 0-1000 us, one step 100-900 (of a segment of 2 steps);
+    resort 100-200, repair 300-400, solve 500-600; kernels of 40 us
+    (resort), 30 (repair), 20 (solve) and 50 (outside every phase)."""
+    events = [_x(trace.WINDOW, "user_annotation", 0.0, 1000.0),
+              _x("fusion_sim.step", "user_annotation", 100.0, 800.0),
+              _x("fusion_sim.solve", "user_annotation", 500.0, 100.0)]
+    if resort:
+        events.append(_x("fusion_sim.resort", "user_annotation", 100.0,
+                         100.0))
+    if repair:
+        events.append(_x("fusion_sim.repair", "user_annotation", 300.0,
+                         100.0))
+    for corr, (t, dur) in enumerate([(150.0, 40.0), (350.0, 30.0),
+                                     (550.0, 20.0), (700.0, 50.0)], 1):
+        events += [_x("cudaLaunchKernel", "cuda_runtime", t, 5.0, corr),
+                   _x(f"kernel_{corr}", "kernel", t + 10.0, dur, corr)]
+    return events
+
+
+@pytest.mark.parametrize("resort,repair,expect", [
+    (True, True, {"layout_ms_per_step.resort": 0.020,
+                  "layout_ms_per_step.resort.host_bound": 0.020,
+                  "layout_ms_per_step.repair": 0.035,
+                  "solve_ms_per_step": 0.010,
+                  "solve_ms_per_step.device_bound": 0.010}),
+    # a repair segment that holds no resort; a resort cell
+    (False, True, {"layout_ms_per_step.resort": None,
+                   "layout_ms_per_step.repair": 0.015}),
+    (True, False, {"layout_ms_per_step.resort": 0.020,
+                   "layout_ms_per_step.resort.host_bound": 0.020,
+                   "layout_ms_per_step.repair": None}),
+])
+def test_layout_and_solve_readers_against_hand_counts(tmp_path, resort,
+                                                      repair, expect):
+    path = tmp_path / "seg.json.gz"
+    _write(path, _layout_events(resort, repair))
+    ctx = SimpleNamespace(trace=trace.read_trace(path, 2))
+    for name, value in expect.items():
+        assert _read(name, ctx) == (value if value is None
+                                    else pytest.approx(value)), name
+
+
+def _with_device_twins(path, out):
+    """The CPU trace at ``path`` with a device twin for each CPU operator
+    (a launch at the operator's start and a 1 us kernel sharing its
+    correlation id), written to ``out``: its complete events and the
+    twins' launch times."""
+    with gzip.open(path, "rt") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    launches = [float(e["ts"]) for e in events if e.get("cat") == "cpu_op"]
+    for corr, t in enumerate(launches, 10 ** 9):
+        events += [_x("cudaLaunchKernel", "cuda_runtime", t, 0.5, corr),
+                   _x("twin", "kernel", t, 1.0, corr)]
+    _write(out, events)
+    return events, launches
+
+
+@pytest.mark.parametrize("cell", SPAN_CELLS)
+def test_span_readers_read_a_tiny_traced_run(cell, tmp_path, monkeypatch):
+    """The program's own resort, repair and solve spans in a traced run of
+    the cell on the CPU (with a one-cell sort margin, so that rows spill
+    and relocation has work), each CPU operator given a 1 us device twin:
+    every layout and solve metric of the cell reads the twins launched
+    under its spans, per step."""
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    loaded = harness.load_cell(cell)
+    config = copy.deepcopy(loaded.config)
+    config["tiling"]["margin"] = 1
+    run_tiny(cell, traced=True, config=config)
+    steps = int(loaded.config["layouts"][loaded.traffic["layout"]]
+                ["trace_steps"])
+    out = tmp_path / "twins.json.gz"
+    events, launches = _with_device_twins(trace.trace_path(cell), out)
+    summary = trace.read_trace(out, steps)
+    ctx = SimpleNamespace(trace=summary)
+    names = [m["name"] for m in loaded.per_layer if m["name"] in SPAN_READERS]
+    assert names
+    for name in names:
+        spans = ["fusion_sim." + s for s in SPAN_READERS[name]]
+        assert summary.span_count.get(spans[0]), (name, spans[0])
+        ivs = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+               for e in events if e.get("cat") == "user_annotation"
+               and e.get("name") in spans]
+        under = sum(any(a <= t <= b for a, b in ivs) for t in launches)
+        assert under > 0, name
+        assert _read(name, ctx) == pytest.approx(1e-3 * under / steps), name
 
 
 def test_counter_reader_reads_the_last_recording(synthetic):

@@ -32,8 +32,7 @@ def _plasma(config, seed):
 ])
 def test_reference_step_matches_the_port(workload, backend):
     config = tiny_config(workload)
-    key = "backend" if config["model"] == "electrostatic" else \
-        "gather_backend"
+    key = next(k for k in config["shell"] if k.endswith("backend"))
     config["shell"][key] = backend
     K = harness.kind(config)
     pos, vel = _plasma(config, 3)

@@ -24,8 +24,8 @@ def test_result_line_keys_untraced():
     assert result["correct"] is True and result["failed"] == 0
     assert result["attempted"] > 0
     assert set(result["metrics"]) == {"particle_updates_per_s",
-                                      "step_ms_p95", "peak_mem_gib",
-                                      "setup_s"}
+                                      "step_ms_p95.host_bound",
+                                      "peak_mem_gib", "setup_s"}
     for m in result["metrics"].values():
         assert set(m) == {"value", "unit"}
     assert set(result["device"]) == {"platform", "kind", "count",

@@ -1,14 +1,12 @@
 """The traced segment of a ``--trace 1`` run and what the per-layer
 metrics read from it.
 
-Spans come from the benchmark's own files: each ``port_bench/spans/
-<name>.json`` lists ``[module, attribute]`` pairs, and while the segment
-runs each attribute (``Class.method`` or a module's function, patched
-where the shell looks it up) is wrapped in
-``torch.profiler.record_function(<name>)``.  A span's device time is the
-time of the device operations launched inside it: a kernel belongs to the
-span that held the host thread when its launch was issued (the launch and
-the kernel share the profiler's correlation id).
+Spans are the program's own: while a profiler records, the shells open
+``fusion_sim.<phase>`` spans (``fusion_sim_torch/utils/profiling.span``);
+the benchmark patches and wraps nothing of the program.  A span's device
+time is the time of the device operations launched inside it: a kernel
+belongs to every span that held the host thread when its launch was
+issued (the launch and the kernel share the profiler's correlation id).
 
 The trace is written gzipped to ``$TMPDIR/port_bench/<cell>.json.gz``
 (overwritten each run) and read back from there.
@@ -17,9 +15,7 @@ The trace is written gzipped to ``$TMPDIR/port_bench/<cell>.json.gz``
 from __future__ import annotations
 
 import bisect
-import contextlib
 import gzip
-import importlib
 import json
 import os
 import tempfile
@@ -29,7 +25,6 @@ from pathlib import Path
 
 import torch
 
-SPANS = Path(__file__).resolve().parent / "spans"
 WINDOW = "port_bench.window"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -58,38 +53,6 @@ class Summary:
                 for t in ts]
 
 
-def _resolve(module: str, attr: str):
-    owner = importlib.import_module(module)
-    *path, last = attr.split(".")
-    for p in path:
-        owner = getattr(owner, p)
-    return owner, last
-
-
-@contextlib.contextmanager
-def spans():
-    """Wrap every callable that the span files name, for the duration."""
-    undo = []
-    try:
-        for path in sorted(SPANS.glob("*.json")):
-            name = path.stem
-            for module, attr in json.loads(path.read_text())["wrap"]:
-                owner, last = _resolve(module, attr)
-                orig = owner.__dict__[last] if isinstance(owner, type) \
-                    else getattr(owner, last)
-
-                def wrapped(*a, _orig=orig, _name=name, **k):
-                    with torch.profiler.record_function(_name):
-                        return _orig(*a, **k)
-
-                setattr(owner, last, wrapped)
-                undo.append((owner, last, orig))
-        yield
-    finally:
-        for owner, last, orig in reversed(undo):
-            setattr(owner, last, orig)
-
-
 def trace_path(cell: str) -> Path:
     d = Path(os.environ.get("TMPDIR") or tempfile.gettempdir()) / "port_bench"
     d.mkdir(parents=True, exist_ok=True)
@@ -97,14 +60,14 @@ def trace_path(cell: str) -> Path:
 
 
 def run_traced(step, steps: int, device: torch.device, cell: str) -> Summary:
-    """``step()`` ``steps`` times under the profiler with the spans on;
-    the segment ends with a device synchronise inside it."""
+    """``step()`` ``steps`` times under the profiler; the segment ends
+    with a device synchronise inside it."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with spans(), profile(activities=acts) as prof:
+    with profile(activities=acts) as prof:
         with record_function(WINDOW):
             t0 = time.perf_counter()
             for _ in range(steps):
