@@ -44,6 +44,7 @@ from ..ops.deposit import deposit_moments, ema_moments, normalize_moments
 from ..ops.push import push_position
 from ..ops.rng import substep_uniforms
 from ..ops.sampling import INV_CDF_SIZE, build_inverse_cdf_table
+from ..utils.profiling import span
 from ..utils.render import render_bmag, render_density_overlay
 
 SPEC_SCHEMA = {
@@ -526,9 +527,16 @@ class CylindricalParticlePusher:
     def _sorted_step_once(self) -> None:
         st = self._sorted_state
         n_rows = st.position.shape[0]
-        rands = [substep_uniforms(self.generator, n_rows, self.device)
-                 for _ in range(2)]
+        with span("kernel"):
+            rands = [substep_uniforms(self.generator, n_rows, self.device)
+                     for _ in range(2)]
         self._sorted_state = self._sorted_step(self.fields, st, rands)
+
+    def _resort_sorted(self) -> None:
+        with span("resort"):
+            self._sorted_state = self._sorted_resort(self._sorted_state)
+            if self._sorted_repair:
+                self._rebuild_free_list()
 
     def _step_sorted(self, n: int) -> None:
         """The reference's cadence: without repair, a call spanning a whole
@@ -542,16 +550,14 @@ class CylindricalParticlePusher:
         done = 0
         while done < n:
             if self._sorted_since >= cadence or self._sorted_need_resort:
-                self._sorted_state = self._sorted_resort(self._sorted_state)
-                if self._sorted_repair:
-                    self._rebuild_free_list()
+                self._resort_sorted()
                 self._sorted_since = 0
                 self._sorted_need_resort = False
             if (not self._sorted_repair and self._sorted_since == 0
                     and n - done >= cadence and cadence <= 128):
                 for _ in range(cadence):
                     self._sorted_step_once()
-                self._sorted_state = self._sorted_resort(self._sorted_state)
+                self._resort_sorted()
                 done += cadence
                 continue
             k = min(n - done, cadence - self._sorted_since)
@@ -576,27 +582,39 @@ class CylindricalParticlePusher:
 
     def step(self, n: int = 1) -> None:
         """Advance n full steps (each two half-steps, empic.js:1436-1469),
-        drawing the uniforms from the shell's generator."""
-        if self._fast_scenario is not None:
-            self._step_fast(n)
-            return
-        if self._sorted_state is not None:
-            self._step_sorted(n)
-            return
-        for _ in range(n):
-            rands = [substep_uniforms(self.generator, self.spec.n_total,
-                                      self.device) for _ in range(2)]
-            self.state = self._step(self.fields, self.state, rands)
+        drawing the uniforms from the shell's generator.
+
+        While a ``torch.profiler`` records, the call is the
+        ``fusion_sim.step`` span (``utils/profiling.span``).  On the sorted
+        path its leaf phases ``kernel`` (the uniforms, the coefficient
+        table and the substep itself), ``patch``, ``respawn``, ``finish``
+        and ``resort`` (models/pusher_sorted.py) hold every operation it
+        launches, with ``host_read`` around each count read on the host,
+        and it counts ``rows_patched`` and ``rows_respawned``."""
+        with span("step"):
+            if self._fast_scenario is not None:
+                self._step_fast(n)
+            elif self._sorted_state is not None:
+                self._step_sorted(n)
+            else:
+                for _ in range(n):
+                    rands = [substep_uniforms(self.generator,
+                                              self.spec.n_total, self.device)
+                             for _ in range(2)]
+                    self.state = self._step(self.fields, self.state, rands)
 
     def density(self) -> torch.Tensor:
         """Deposit moments, update the EMA, render the frame
-        (empic.js:1471-1526).  Returns (nr, nz, 3) float RGB."""
-        if self._sorted_state is not None:
-            self._sorted_state, frame = self._sorted_density(
-                self.fields, self._sorted_state)
+        (empic.js:1471-1526).  Returns (nr, nz, 3) float RGB.  While a
+        profiler records, the call is the leaf span
+        ``fusion_sim.density``."""
+        with span("density"):
+            if self._sorted_state is not None:
+                self._sorted_state, frame = self._sorted_density(
+                    self.fields, self._sorted_state)
+                return frame
+            self.state, frame = self._density(self.fields, self.state)
             return frame
-        self.state, frame = self._density(self.fields, self.state)
-        return frame
 
     # ---------------------------------------------------- checkpointing
     def get_state(self) -> dict[str, np.ndarray]:

@@ -27,6 +27,15 @@ package's random numbers row for row.  Where the reference runs
 ``lax.cond``/``lax.scan``, the port reads counts on the host: each
 substep reads its spill count(s) and its respawn count once.  Counters
 (``spill``, ``dropped``, ``dropped_over``) are Python ints.
+
+While a ``torch.profiler`` records, a step's operations fall in the leaf
+spans of ``utils/profiling.span``: ``kernel`` (the coefficient table and
+the substep's sampling and push), ``patch`` (the spill masks, counts,
+compaction and exact re-push), ``respawn`` (the sink values and
+``ops/push.sink_respawn``), ``finish`` (repair and the fillers'
+``where``), with ``host_read`` around each count read; the counter
+``rows_patched`` adds min(spill, capacity) a sample, and
+``sink_respawn`` counts ``rows_respawned``.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from ..ops.repair import allocate_slots, relocate
 from ..ops.sorted_deposit import (Tiling2D, build_padded_layout,
                                   gather_sorted_2d, tile_ids)
 from ..ops.sorted_gather import gather_sorted_2d_window
+from ..utils.profiling import count, span
 from ..utils.render import render_bmag, render_density_overlay
 
 FILLER = (0.5, 0.0, 0.5)
@@ -177,12 +187,13 @@ def _spilled_rows(mask: torch.Tensor, capacities: tuple[int, ...]
     and the first min(count, capacities[-1]) of them in row order,
     compacted at the smallest capacity that covers the count (a buffer
     size only: every tier yields the same rows)."""
-    count = int(mask.sum())
-    k = min(count, capacities[-1])
+    with span("host_read"):
+        n = int(mask.sum())
+    k = min(n, capacities[-1])
     if not k:
-        return count, torch.empty((0,), dtype=torch.int64, device=mask.device)
+        return n, torch.empty((0,), dtype=torch.int64, device=mask.device)
     cap = next(c for c in capacities if k <= c)
-    return count, spill_rows(mask, count, cap, mask.shape[0])[0][:k]
+    return n, spill_rows(mask, n, cap, mask.shape[0])[0][:k]
 
 
 def _radius(position: torch.Tensor) -> torch.Tensor:
@@ -218,17 +229,22 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
 
     def finish(state, position, velocity, alive, **counts):
         """Repair (relocation), then fillers frozen and inert."""
-        v = state.valid
-        if repair:
-            position, velocity, alive, v, extra = _relocate_out_rows(
-                state, position, velocity, alive, nr, nz, tiling,
-                spill_capacity)
-            counts.update(extra, valid=v)
-        return state._replace(
-            position=torch.where(v[:, None], position,
-                                 _filler(position.device)),
-            velocity=torch.where(v[:, None], velocity, 0.0),
-            alive=torch.where(v, alive, 1.0), **counts)
+        with span("finish"):
+            v = state.valid
+            if repair:
+                position, velocity, alive, v, extra = _relocate_out_rows(
+                    state, position, velocity, alive, nr, nz, tiling,
+                    spill_capacity)
+                counts.update(extra, valid=v)
+            return state._replace(
+                position=torch.where(v[:, None], position,
+                                     _filler(position.device)),
+                velocity=torch.where(v[:, None], velocity, 0.0),
+                alive=torch.where(v, alive, 1.0), **counts)
+
+    def patched(n: int) -> None:
+        """Count the rows of a sample that take the patch."""
+        count("rows_patched", min(n, spill_capacity))
 
     def window_gather(grid, cell, tile_id):
         if backend == "pallas":
@@ -240,46 +256,55 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
     def gather_substep(fields, state, packed, rand):
         valid = state.valid
         # velocity: windowed 12-channel NEAREST gather + exact patch
-        cell = _cell_coords(state.position, nr, nz)
-        rows, g_inw = window_gather(packed, cell, state.tile_id)
-        g_mask = ~g_inw & valid
-        n_g, idx = _spilled_rows(g_mask, caps)
-        if idx.numel():
-            pk = state.position[idx]
-            rows[idx] = gather_nearest(packed, _radius(pk), pk[:, 2])
-        velocity = velocity_from_rows(state.position, state.velocity,
-                                      state.alive, rand, rows)
+        with span("kernel"):
+            cell = _cell_coords(state.position, nr, nz)
+            rows, g_inw = window_gather(packed, cell, state.tile_id)
+        with span("patch"):
+            g_mask = ~g_inw & valid
+            n_g, idx = _spilled_rows(g_mask, caps)
+            if idx.numel():
+                pk = state.position[idx]
+                rows[idx] = gather_nearest(packed, _radius(pk), pk[:, 2])
         # position: drift, windowed sink sample + exact patch
-        next_pos = state.position + step_factor * velocity
-        sink_grid = fields.sink_mask[..., None]
-        sink, s_inw = window_gather(sink_grid, _cell_coords(next_pos, nr, nz),
-                                    state.tile_id)
-        sink = sink[:, 0]
-        s_mask = ~s_inw & valid
-        n_s, idx2 = _spilled_rows(s_mask, caps)
-        if idx2.numel():
-            pk2 = next_pos[idx2]
-            sink[idx2] = gather_nearest(sink_grid, _radius(pk2),
-                                        pk2[:, 2])[:, 0]
-        sink = torch.where(valid, sink, 1.0)
-        # patch overflow: rows past spill_capacity were not patched, so
-        # their samples are wrong; they FREEZE for this substep (no move,
-        # no absorb/respawn) and retry
-        frozen = None
-        if max(n_g, n_s) > spill_capacity:
-            patched_g = torch.zeros_like(valid)
-            patched_g[idx] = True
-            patched_s = torch.zeros_like(valid)
-            patched_s[idx2] = True
-            frozen = (g_mask & ~patched_g) | (s_mask & ~patched_s)
-            sink = torch.where(frozen, 1.0, sink)
-        position, alive, n_drop = sink_respawn(
-            next_pos, sink, rand, fields.inv_cdf,
-            respawn_capacity=respawn_capacity)
-        if frozen is not None:
-            position = torch.where(frozen[:, None], state.position, position)
-            velocity = torch.where(frozen[:, None], state.velocity, velocity)
-            alive = torch.where(frozen, state.alive, alive)
+        with span("kernel"):
+            velocity = velocity_from_rows(state.position, state.velocity,
+                                          state.alive, rand, rows)
+            next_pos = state.position + step_factor * velocity
+            sink_grid = fields.sink_mask[..., None]
+            sink, s_inw = window_gather(
+                sink_grid, _cell_coords(next_pos, nr, nz), state.tile_id)
+            sink = sink[:, 0]
+        with span("patch"):
+            s_mask = ~s_inw & valid
+            n_s, idx2 = _spilled_rows(s_mask, caps)
+            if idx2.numel():
+                pk2 = next_pos[idx2]
+                sink[idx2] = gather_nearest(sink_grid, _radius(pk2),
+                                            pk2[:, 2])[:, 0]
+            patched(n_g)
+            patched(n_s)
+        with span("respawn"):
+            sink = torch.where(valid, sink, 1.0)
+            # patch overflow: rows past spill_capacity were not patched, so
+            # their samples are wrong; they FREEZE for this substep (no
+            # move, no absorb/respawn) and retry
+            frozen = None
+            if max(n_g, n_s) > spill_capacity:
+                patched_g = torch.zeros_like(valid)
+                patched_g[idx] = True
+                patched_s = torch.zeros_like(valid)
+                patched_s[idx2] = True
+                frozen = (g_mask & ~patched_g) | (s_mask & ~patched_s)
+                sink = torch.where(frozen, 1.0, sink)
+            position, alive, n_drop = sink_respawn(
+                next_pos, sink, rand, fields.inv_cdf,
+                respawn_capacity=respawn_capacity)
+            if frozen is not None:
+                position = torch.where(frozen[:, None], state.position,
+                                       position)
+                velocity = torch.where(frozen[:, None], state.velocity,
+                                       velocity)
+                alive = torch.where(frozen, state.alive, alive)
         n_over = (max(n_g - spill_capacity, 0)
                   + max(n_s - spill_capacity, 0))
         return finish(state, position, velocity, alive,
@@ -288,27 +313,33 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
                       dropped_over=state.dropped_over + n_over)
 
     def fused_substep(fields, state, packed13, rand):
-        pos1, vel1, sink, inw = fused_pusher_substep(
-            packed13, state.position, state.velocity, state.alive, rand,
-            state.tile_id, nr, nz, tiling, step_factor)
+        with span("kernel"):
+            pos1, vel1, sink, inw = fused_pusher_substep(
+                packed13, state.position, state.velocity, state.alive, rand,
+                state.tile_id, nr, nz, tiling, step_factor)
         # exact re-push of the out-of-window rows (the kernel froze them);
         # rows past spill_capacity stay frozen with sink = 1
-        mask = ~inw & state.valid
-        n_sp, idx = _spilled_rows(mask, caps)
-        if idx.numel():
-            pk = state.position[idx]
-            rows_k = gather_nearest(packed13[..., :12], _radius(pk), pk[:, 2])
-            vel_k = velocity_from_rows(pk, state.velocity[idx],
-                                       state.alive[idx], rand[idx], rows_k)
-            pos_k = pk + step_factor * vel_k
-            pos1[idx] = pos_k
-            vel1[idx] = vel_k
-            sink[idx] = gather_nearest(packed13[..., 12:13], _radius(pos_k),
-                                       pos_k[:, 2])[:, 0]
-        sink = torch.where(state.valid, sink, 1.0)
-        position, alive, n_drop = sink_respawn(
-            pos1, sink, rand, fields.inv_cdf,
-            respawn_capacity=respawn_capacity)
+        with span("patch"):
+            mask = ~inw & state.valid
+            n_sp, idx = _spilled_rows(mask, caps)
+            if idx.numel():
+                pk = state.position[idx]
+                rows_k = gather_nearest(packed13[..., :12], _radius(pk),
+                                        pk[:, 2])
+                vel_k = velocity_from_rows(pk, state.velocity[idx],
+                                           state.alive[idx], rand[idx],
+                                           rows_k)
+                pos_k = pk + step_factor * vel_k
+                pos1[idx] = pos_k
+                vel1[idx] = vel_k
+                sink[idx] = gather_nearest(packed13[..., 12:13],
+                                           _radius(pos_k), pos_k[:, 2])[:, 0]
+            patched(n_sp)
+        with span("respawn"):
+            sink = torch.where(state.valid, sink, 1.0)
+            position, alive, n_drop = sink_respawn(
+                pos1, sink, rand, fields.inv_cdf,
+                respawn_capacity=respawn_capacity)
         return finish(state, position, vel1, alive,
                       spill=state.spill + n_sp,
                       dropped=state.dropped + n_drop,
@@ -316,11 +347,13 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
                                     + max(n_sp - spill_capacity, 0)))
 
     def step(fields, state: SortedPusherState, rands) -> SortedPusherState:
-        packed = pack_coefficients(fields.coeffs)
-        substep = gather_substep
-        if backend == "fused":
-            packed = torch.cat([packed, fields.sink_mask[..., None]], dim=-1)
-            substep = fused_substep
+        with span("kernel"):
+            packed = pack_coefficients(fields.coeffs)
+            substep = gather_substep
+            if backend == "fused":
+                packed = torch.cat([packed, fields.sink_mask[..., None]],
+                                   dim=-1)
+                substep = fused_substep
         for rand in rands:
             state = substep(fields, state, packed, rand)
         return state

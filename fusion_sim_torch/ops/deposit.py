@@ -54,8 +54,13 @@ def deposit_moments(position: torch.Tensor, velocity: torch.Tensor,
     sorted layout passes 0 on filler rows).  Returns (nr, nz, 4)."""
     ir, iz, r = particle_cell_indices(position, nr, nz)
     x, y = position[..., 0], position[..., 1]
-    dir_x = x / r
-    dir_y = y / r
+    # a row respawned at the source's inner edge sits at r ~ 1e-31
+    # (ops/sampling's f -> 0 limit), whose square is 0 in f32: it takes the
+    # direction of the theta = 0 half-plane, where respawns are placed,
+    # instead of 0/0, whose NaN would stay in the moments' average
+    on_axis = r == 0.0
+    dir_x = torch.where(on_axis, 1.0, x / r)
+    dir_y = torch.where(on_axis, 0.0, y / r)
     vx, vy, vz = velocity[..., 0], velocity[..., 1], velocity[..., 2]
     vr = vx * dir_x + vy * dir_y
     va = vy * dir_x - vx * dir_y

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count, span
 from .boris import gather_nearest
 from .interp import spill_rows_cond
 from .sampling import sample_inverse_cdf
@@ -47,7 +48,9 @@ def sink_respawn(next_pos: torch.Tensor, sink: torch.Tensor,
     their drifted position with alive = 0 and are re-absorbed next
     substep; ``n_dropped = max(n_respawning - capacity, 0)`` counts them
     (0 without a capacity).  With a capacity the respawn count is read on
-    the host once (it sizes the compaction)."""
+    the host once (it sizes the compaction; the ``fusion_sim.host_read``
+    span while a profiler records) and the counter ``rows_respawned``
+    adds the rows respawned, min(count, capacity)."""
     x, y, z = next_pos[..., 0], next_pos[..., 1], next_pos[..., 2]
     keep = sink > 0.5
     alive = keep.to(torch.float32)
@@ -59,8 +62,10 @@ def sink_respawn(next_pos: torch.Tensor, sink: torch.Tensor,
                            torch.where(keep, z, new_z)], dim=-1)
         return out, alive, 0
     mask = ~keep
-    n_respawn = int(mask.sum())
+    with span("host_read"):
+        n_respawn = int(mask.sum())
     k = min(n_respawn, respawn_capacity)
+    count("rows_respawned", k)
     out = next_pos.clone()
     if k:
         idx = spill_rows_cond(mask, n_respawn, respawn_capacity,

@@ -170,3 +170,146 @@ def test_trace_resets_and_writes_counters(tmp_path):
     names = {e.get("name") for e in json.loads(
         (tmp_path / "trace.json").read_text())["traceEvents"]}
     assert "fusion_sim.step" in names
+
+
+# -- the pusher shell ----------------------------------------------------------
+
+PUSHER_LEAVES = {"fusion_sim." + n for n in ("kernel", "patch", "respawn",
+                                             "finish", "resort", "density")}
+
+
+def _pusher(seed=7):
+    """The app's scenario on 32 x 64 cells with 16^2 fast rows over the
+    vessel, on the sorted fused path with a two-cell margin, resorting
+    every 3 frames: rows leave their windows and reach the walls each
+    frame."""
+    import numpy as np
+
+    from fusion_sim_torch.models.pusher import CylindricalParticlePusher
+    from fusion_sim_torch.ops.fused_pusher import stream_tiling_for
+    from fusion_sim_torch.scenarios import apply_default_scenario
+
+    spec = {"radius": 1.0, "height": 2.0, "nr": 32, "nz": 64, "dt": 2e-9,
+            "nparticles": 16, "particle_mass": 1.67e-27,
+            "particle_charge": 1.602e-19}
+    sim = CylindricalParticlePusher(spec, seed=seed, device="cpu")
+    apply_default_scenario(sim, seed=seed)
+    rng = np.random.default_rng(seed)
+    r, th = np.sqrt(rng.random(256)), 2 * np.pi * rng.random(256)
+    sim.set({"position": np.stack([r * np.cos(th), r * np.sin(th),
+                                   2 * rng.random(256)], -1),
+             "velocity": 0.02 * rng.standard_normal((256, 3))})
+    sim.enable_sorted_path(tiling=stream_tiling_for(32, 64, margin=2),
+                           resort_every=3, backend="fused",
+                           spill_capacity=4096, respawn_capacity=2048)
+    return sim
+
+
+def _frames(sim, n):
+    for _ in range(n):
+        sim.step(1)
+        sim.density()
+
+
+@pytest.fixture(scope="module")
+def pusher_recording():
+    """Seven app frames of the sorted fused pusher under the profiler (two
+    open with a resort), and the respawns of each half-step, counted
+    from the rows that each sink/respawn pass absorbs."""
+    from fusion_sim_torch.models import pusher_sorted
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    orig = pusher_sorted.sink_respawn
+    absorbed = []
+
+    def sink_respawn(next_pos, sink, *args, **kw):
+        absorbed.append(int((sink <= 0.5).sum()))
+        return orig(next_pos, sink, *args, **kw)
+
+    try:
+        sim = _pusher()
+        pusher_sorted.sink_respawn = sink_respawn
+        profiling.span("step")      # seen untraced: the recording counts anew
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _frames(sim, 7)
+        counts = profiling.counters()
+    finally:
+        pusher_sorted.sink_respawn = orig
+        torch.set_num_threads(saved)
+    return dict(sim=sim, events=list(prof.events()), counts=counts,
+                absorbed=absorbed)
+
+
+def test_pusher_ops_have_one_leaf_phase(pusher_recording):
+    """Every operation of a frame, inside ``step`` or ``density``, lies in
+    exactly one leaf phase."""
+    seen = 0
+    for e in pusher_recording["events"]:
+        if not e.name.startswith("aten::"):
+            continue
+        up = _ancestors(e)
+        if not {"fusion_sim.step", "fusion_sim.density"} & set(up):
+            continue
+        seen += 1
+        leaves = [a for a in up if a in PUSHER_LEAVES]
+        assert len(leaves) == 1, (e.name, up)
+    assert seen > 0
+
+
+def test_pusher_span_counts(pusher_recording):
+    n = {}
+    for e in pusher_recording["events"]:
+        if e.name.startswith("fusion_sim."):
+            n[e.name] = n.get(e.name, 0) + 1
+    assert n["fusion_sim.step"] == n["fusion_sim.density"] == 7
+    assert n["fusion_sim.resort"] == 2              # frames 4 and 7
+    # the spill count and the respawn count of each half-step
+    assert n["fusion_sim.host_read"] == 7 * 2 * 2
+    assert set(n) <= PUSHER_LEAVES | {"fusion_sim.step",
+                                      "fusion_sim.host_read"}
+
+
+def test_rows_respawned_counts_the_respawns(pusher_recording):
+    absorbed = pusher_recording["absorbed"]
+    assert len(absorbed) == 14 and sum(absorbed) > 0
+    assert pusher_recording["counts"]["rows_respawned"] == sum(absorbed)
+    assert pusher_recording["counts"]["rows_patched"] \
+        == pusher_recording["sim"]._sorted_state.spill > 0
+    assert pusher_recording["sim"]._sorted_state.dropped == 0
+
+
+def _scalar_reads(fn):
+    """Device-to-host scalar reads (``aten::_local_scalar_dense``) while
+    ``fn`` runs, seen by a dispatch mode (which needs no profiler)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Reads(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._local_scalar_dense.default:
+                Reads.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Reads():
+        fn()
+    return Reads.n
+
+
+def test_pusher_spans_add_no_host_read():
+    """Two twins from one build, one frame each at a time, the first
+    under a recording: both read the same scalars, two a half-step (the
+    spill count and the respawn count) on frames without a resort, and
+    end in the same state."""
+    traced, plain = _pusher(), _pusher()
+    for frame in range(5):
+        with profile(activities=[ProfilerActivity.CPU]):
+            a = _scalar_reads(lambda: _frames(traced, 1))
+        b = _scalar_reads(lambda: _frames(plain, 1))
+        assert a == b
+        if frame != 3:                      # frame 4 opens with a resort
+            assert a == 4, frame
+    for key, x in traced._sorted_state._asdict().items():
+        y = getattr(plain._sorted_state, key)
+        assert (torch.equal(x, y) if torch.is_tensor(x) else x == y), key
