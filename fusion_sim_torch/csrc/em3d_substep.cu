@@ -14,9 +14,11 @@
 //   wrap back to global periodic coordinates and flag in_win.
 // A row whose l0 or l1 leaves [0, w - 1) on any axis comes back frozen
 // (position mod(l0 + origin, n), velocity as given) with no deposit; the
-// model re-pushes it exactly (spill patch).  An invalid row carries no charge
-// but is pushed like any other.  Rows of blocks carrying the sentinel tile id
-// (n_tiles) come back exactly as given, in_win = 0.
+// model re-pushes it exactly (spill patch).  An invalid row of a real tile
+// carries no charge and comes back with position and velocity +0.0 (in_win
+// as for any row): the layout's fillers stay zero with no pass of the
+// model's.  Rows of blocks carrying the sentinel tile id (n_tiles) come back
+// exactly as given, in_win = 0, whatever their valid byte says.
 //
 // Design.  Read through L1, a row's 8 corner cells are 24 float2 loads in
 // which the lanes of a warp sit on different cells, so each warp-wide load
@@ -341,6 +343,7 @@ em3d_substep_kernel(const float* __restrict__ table,
                   pz = pos[row * 3 + 2];
       const float vx = vel[row * 3], vy = vel[row * 3 + 1],
                   vz = vel[row * 3 + 2];
+      const bool live = valid[row] != 0;
       l0x = floor_mod(px - ox_f, nx_f);
       l0y = floor_mod(py - oy_f, ny_f);
       l0z = floor_mod(pz - oz_f, nz_f);
@@ -453,7 +456,22 @@ em3d_substep_kernel(const float* __restrict__ table,
               && l1z >= 0.0f && l1z < wz1;
       }
 
-      if (inw && valid[row]) {
+      // the row's outputs before its deposit, so that only the deposit's
+      // values stay live across it (no spill at 80 registers; the valid
+      // byte read with the row's other inputs); a filler is written as +0.0
+      // (the same stores, a select more)
+      pos_out[row * 3] =
+          live ? floor_mod((inw ? l1x : l0x) + ox_f, nx_f) : 0.0f;
+      pos_out[row * 3 + 1] =
+          live ? floor_mod((inw ? l1y : l0y) + oy_f, ny_f) : 0.0f;
+      pos_out[row * 3 + 2] =
+          live ? floor_mod((inw ? l1z : l0z) + oz_f, nz_f) : 0.0f;
+      vel_out[row * 3] = live ? (inw ? nvx : vx) : 0.0f;
+      vel_out[row * 3 + 1] = live ? (inw ? nvy : vy) : 0.0f;
+      vel_out[row * 3 + 2] = live ? (inw ? nvz : vz) : 0.0f;
+      in_win[row] = inw ? 1 : 0;
+
+      if (inw && live) {
         if (floorf(l1x) == fi && floorf(l1y) == fj && floorf(l1z) == fk) {
           deposit_cell(j_s, l0x, l0y, l0z, l1x, l1y, l1z, (int)fi, (int)fj,
                        (int)fk, qcx, qcy, qcz, wy, wz);
@@ -461,14 +479,6 @@ em3d_substep_kernel(const float* __restrict__ table,
           queue = true;
         }
       }
-
-      pos_out[row * 3] = floor_mod((inw ? l1x : l0x) + ox_f, nx_f);
-      pos_out[row * 3 + 1] = floor_mod((inw ? l1y : l0y) + oy_f, ny_f);
-      pos_out[row * 3 + 2] = floor_mod((inw ? l1z : l0z) + oz_f, nz_f);
-      vel_out[row * 3] = inw ? nvx : vx;
-      vel_out[row * 3 + 1] = inw ? nvy : vy;
-      vel_out[row * 3 + 2] = inw ? nvz : vz;
-      in_win[row] = inw ? 1 : 0;
     }
 
     // rows that leave their cell wait in the warp's queue; 32 of them

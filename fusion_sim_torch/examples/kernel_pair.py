@@ -129,7 +129,8 @@ ABLATIONS = {
              "v[a][bb][d] = make_float2(1e-3f * (a + bb + d + c), 0.0f);")]),
         ("no deposit", [
             ("if (inw && valid[row]) {",
-             "if (inw && valid[row] && p.n_tiles < 0) {")]),
+             "if (inw && valid[row] && p.n_tiles < 0) {"),
+            ("if (inw && live) {", "if (inw && live && p.n_tiles < 0) {")]),
     ),
     "es3d_substep": (
         ("no gather", [

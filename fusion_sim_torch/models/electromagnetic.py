@@ -389,7 +389,8 @@ class SortedElectromagneticPIC:
     2D the layout orders each tile's rows by cell
     (``build_padded_layout(cell_order=True)``), at build and at every
     resort, so that kernel B4 sums a warp's rows of one cell before it adds
-    them to its window.
+    them to its window.  With 'fused' in 3D and repair off, kernel B6
+    writes the fillers as zeros itself, and the finish zeroes nothing.
 
     While a ``torch.profiler`` records, ``step`` opens the spans of
     ``utils/profiling.span`` (``fusion_sim.step`` around the call; leaf
@@ -464,6 +465,11 @@ class SortedElectromagneticPIC:
         self._step_once = (self._step_fused if gather_backend == "fused"
                            else self._step_split)
         self._cell_order = gather_backend == "fused" and config.n_dim == 2
+        # kernel B6 writes the fillers of real tiles as +0.0 and returns the
+        # sentinel blocks (zero by the layout) as given; without repair no
+        # step makes a row invalid, so no zeroing pass is left to do
+        self._fillers_zero = (gather_backend == "fused" and config.n_dim == 3
+                              and not repair)
         if _state is not None:                              # from_state
             self.state = sorted_em_state_from_numpy(_state, dev)
             self.n_real = int(self.state.valid.sum())
@@ -567,7 +573,8 @@ class SortedElectromagneticPIC:
 
     def _finish(self, state, x1, velocity, j, spill, **extra) -> None:
         """The Yee update, fillers zeroed (on the validity after any
-        relocation), counters advanced."""
+        relocation) unless the kernel wrote them as zeros, counters
+        advanced."""
         with span("solve"):
             e_new, b_new = yee_update(self.config, state.e, state.b, j)
         if self.spill_fallback:
@@ -576,10 +583,12 @@ class SortedElectromagneticPIC:
             dropped = spill
         count("rows_patched", spill - dropped)
         with span("finish"):
-            valid = extra.get("valid", state.valid)[:, None]
+            if not self._fillers_zero:
+                valid = extra.get("valid", state.valid)[:, None]
+                x1 = torch.where(valid, x1, 0.0)
+                velocity = torch.where(valid, velocity, 0.0)
             self.state = state._replace(
-                position=torch.where(valid, x1, 0.0),
-                velocity=torch.where(valid, velocity, 0.0),
+                position=x1, velocity=velocity,
                 e=e_new, b=b_new, step=state.step + 1,
                 spill=state.spill + spill,
                 spill_dropped=state.spill_dropped + dropped, **extra)

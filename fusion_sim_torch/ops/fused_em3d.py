@@ -15,10 +15,12 @@ then back to global periodic coordinates.  A row whose l0 (gather) or l1
 (deposit) leaves ``[0, w - 1)`` on any axis comes back frozen (position
 mod(l0 + origin, n), velocity as given) with no deposit and ``in_win =
 False``; the model re-pushes it exactly from its input (its spill patch).
-An invalid row carries no charge but is pushed like any other (the model
-zeroes fillers afterwards).  Rows of blocks carrying the sentinel tile id
-(``n_tiles``, the layout's trailing dead blocks) have no window: they come
-back exactly as given, ``in_win = False``, no deposit.
+An invalid row of a real tile carries no charge and comes back with
+position and velocity +0.0 (``in_win`` as for any row), so the layout's
+fillers stay zero with no pass of the model's.  Rows of blocks carrying the
+sentinel tile id (``n_tiles``, the layout's trailing dead blocks) have no
+window: they come back exactly as given, ``in_win = False``, no deposit,
+whatever ``valid`` says.
 
 The Esirkepov factors are the reference kernel's, node by node of the
 window: tents ``S(l)[i] = max(0, 1 - |l - i|)``, dS = S(l1) - S(l0), and
@@ -190,12 +192,15 @@ def fused_em3d_substep_plain(table, position, velocity, valid, tile_id,
                     ok = ok_xy & ok_z
                     j.index_add_(0, (row + gk)[ok], vals[ok])
 
+    # a filler of a real tile comes back +0.0; a sentinel row as given
+    filler = real_tile & ~valid
     pos_out = torch.stack([
-        torch.where(real_tile, torch.remainder(
+        torch.where(filler, 0.0, torch.where(real_tile, torch.remainder(
             torch.where(inw, l1[a], l0[a]) + o_f[a], float(shape[a])),
-            position[:, a]) for a in range(3)], dim=-1)
-    vel_out = torch.stack([torch.where(inw, nv[a], velocity[:, a])
-                           for a in range(3)], dim=-1)
+            position[:, a])) for a in range(3)], dim=-1)
+    vel_out = torch.stack([
+        torch.where(filler, 0.0, torch.where(inw, nv[a], velocity[:, a]))
+        for a in range(3)], dim=-1)
     return pos_out, vel_out, j.reshape(nx, ny, nz, 3), inw
 
 
@@ -274,9 +279,9 @@ def fused_em3d_substep(table, position, velocity, valid, tile_id, shape,
     (fillers carry no charge), ``tile_id`` (N,) int32.  Returns
     ``(position', velocity', j (nx, ny, nz, 3), in_win)``: positions in
     global grid units, ``~in_win`` rows frozen with no deposit (the model
-    re-pushes them exactly).  ``precision`` names the reference's matmul
-    strategy and is validated only: the port computes in f32
-    (ops/precision.py).
+    re-pushes them exactly), the invalid rows of real tiles +0.0.
+    ``precision`` names the reference's matmul strategy and is validated
+    only: the port computes in f32 (ops/precision.py).
 
     A CUDA ``position`` launches the Hopper kernel (or raises); a CPU one
     runs ``fused_em3d_substep_plain``."""

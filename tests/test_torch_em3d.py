@@ -146,6 +146,74 @@ def test_sorted_em3d_matches_reference_across_a_resort_with_spill(backend):
                                        rtol=0, atol=2e-5, err_msg=name)
 
 
+class _ZeroingFinish(tem.SortedElectromagneticPIC):
+    """The shell with the finish's zeroing pass on the kernel's outputs, as
+    every path ran it before kernel B6 wrote its fillers as zeros."""
+
+    def _finish(self, state, x1, velocity, j, spill, **extra):
+        valid = state.valid[:, None]
+        super()._finish(state, torch.where(valid, x1, 0.0),
+                        torch.where(valid, velocity, 0.0), j, spill, **extra)
+
+
+def _finish_wheres(sim, steps):
+    """The ``aten::where`` calls launched inside ``fusion_sim.finish`` over
+    ``steps`` single steps under the profiler, and the finish spans."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(steps):
+            sim.step(1)
+    wheres = finishes = 0
+    for e in prof.events():
+        if e.name == "fusion_sim.finish":
+            finishes += 1
+        up, parent = [], e.cpu_parent
+        while parent is not None:
+            up.append(parent.name)
+            parent = parent.cpu_parent
+        wheres += e.name == "aten::where" and "fusion_sim.finish" in up
+    return wheres, finishes
+
+
+def test_sorted_em3d_fused_keeps_fillers_zero_with_no_finish_pass():
+    """The fused 3D shell without repair: B6 writes the fillers of real
+    tiles as +0.0 and the resort leaves the rest zero, so over 5 steps
+    across a resort (with patched spill) the state is bit for bit that of
+    the shell that zeroed after the kernel, every invalid row is +0.0, and
+    the finish launches no where.  With repair the finish keeps its
+    zeroing (relocation changes validity after the kernel)."""
+    kw, pos, vel = _setup(vscale=1.5)
+    vel = np.clip(vel, -4.5, 4.5)
+    e0, b0 = _wave(16)
+    config = tem.EMConfig(**kw)
+    args = dict(e=e0, b=b0, tiling=TTiling(**TILE), resort_every=3,
+                gather_backend="fused", check_spill=False,
+                spill_capacity=512, device="cpu")
+    sim = tem.SortedElectromagneticPIC(config, pos, vel, **args)
+    twin = _ZeroingFinish(config, pos, vel, **args)
+    wheres, finishes = _finish_wheres(sim, 5)
+    assert (wheres, finishes) == (0, 5)
+    twin.step(5)
+    assert sim._since_sort == 2 and sim.state.spill > 20
+    def bits(x):   # floats as ints: -0.0 and +0.0 differ
+        return x.view(torch.int32) if x.is_floating_point() else x
+
+    for key, x in sim.state._asdict().items():
+        y = getattr(twin.state, key)
+        if torch.is_tensor(x):
+            assert torch.equal(bits(x), bits(y)), key
+        else:
+            assert x == y, key
+    dead = ~sim.state.valid
+    assert bool(dead.any())
+    for name in ("position", "velocity"):
+        assert not bool(bits(getattr(sim.state, name)[dead]).any()), name
+    repair = tem.SortedElectromagneticPIC(config, pos, vel, repair=True,
+                                          **args)
+    wheres, finishes = _finish_wheres(repair, 2)
+    assert finishes == 2 and wheres > 0
+
+
 def _sorted_gauss_residual(sim):
     st, cfg = sim.state, sim.config
     w = torch.where(st.valid, cfg.charge / cfg.cell_volume, 0.0)

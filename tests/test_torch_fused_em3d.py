@@ -58,9 +58,20 @@ def _run_both(arrays, margin=2, relativistic=False, precision="highest",
     return [np.asarray(r) for r in ref], [g.numpy() for g in got]
 
 
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
 def _compare(ref, got, keep, j_tol=5e-5, row_tol=1.0):
     # the window decisions are comparisons on the same f32 values
     np.testing.assert_array_equal(got[3][keep], ref[3][keep])
+    # the invalid rows: the reference's model zeroes them after its kernel
+    # (jnp.where on validity), the port's kernel writes them as +0.0
+    for i in (0, 1):
+        zeroed = np.asarray(jnp.where(jnp.asarray(keep)[:, None], ref[i],
+                                      0.0))
+        np.testing.assert_array_equal(_bits(got[i][~keep]),
+                                      _bits(zeroed[~keep]))
     # the reference gathers with tent matmuls ('highest' f32), the port with
     # direct f32 sums: velocities to 1e-6 relative (4e-6 absolute on a fast
     # row's components near 0), positions to two ulps of a coordinate in the
@@ -142,34 +153,46 @@ def test_fused_em3d_substep_each_criterion_alone_freezes_rows():
 
 
 def test_invalid_rows_are_pushed_and_sentinel_blocks_have_no_window():
-    """An invalid row of a real tile carries no charge but is pushed like
-    any other (the model zeroes fillers afterwards).  Rows of sentinel-tile
-    blocks have no window: they come back exactly as given with in_win
-    False and deposit nothing, even when marked valid (ROADMAP Queue C: the
-    reference pads such blocks to far-out coordinates and a trash row)."""
+    """An invalid row of a real tile carries no charge and comes back with
+    position and velocity +0.0, its in_win the window decision that a
+    valid row there gets (the model needs no zeroing pass after the
+    kernel).  Rows of sentinel-tile blocks have no window: they come back
+    exactly as given with in_win False and deposit nothing, marked valid
+    or not (ROADMAP Queue C: the reference pads such blocks to far-out
+    coordinates and a trash row)."""
     table, pos, vel, valid, tid = _case(0.1)
     n_tiles = 2 * 2 * 4
     sentinel = tid == n_tiles
     filler = ~valid & ~sentinel
     assert sentinel.any() and filler.any()
     rng = np.random.default_rng(5)
-    pos = np.where(sentinel[:, None], rng.random(pos.shape) * 15.0,
+    # fillers and sentinel rows with values of their own, so that a zero
+    # written and a value passed through are told apart
+    pos = np.where((sentinel | filler)[:, None], rng.random(pos.shape) * 15.0,
                    pos).astype(np.float32)
     vel = np.where((sentinel | filler)[:, None], 1.0, vel).astype(np.float32)
-    run = lambda v: te.fused_em3d_substep(
+    run = lambda v: [o.numpy() for o in te.fused_em3d_substep(
         *map(torch.tensor, (table, pos, vel, v, tid)), SHAPE,
-        TTiling(**_tile()), **KW)
+        TTiling(**_tile()), **KW)]
     base, got = run(valid), run(valid | sentinel)
-    assert not got[3].numpy()[sentinel].any()
-    np.testing.assert_array_equal(got[0].numpy()[sentinel], pos[sentinel])
-    np.testing.assert_array_equal(got[1].numpy()[sentinel], vel[sentinel])
-    np.testing.assert_array_equal(got[2].numpy(), base[2].numpy())
-    # fillers sit at position 0: inside the windows that wrap around the
-    # grid's corner, and there they are pushed
-    pushed = filler & got[3].numpy()
-    assert pushed.any()
-    assert (got[1].numpy()[pushed] != vel[pushed]).any(axis=1).all()
-    assert (got[0].numpy()[pushed] != pos[pushed]).any(axis=1).all()
+    for out in (base, got):
+        assert not out[3][sentinel].any()
+        np.testing.assert_array_equal(_bits(out[0][sentinel]),
+                                      _bits(pos[sentinel]))
+        np.testing.assert_array_equal(_bits(out[1][sentinel]),
+                                      _bits(vel[sentinel]))
+        # +0.0, sign bit clear
+        assert not _bits(out[0][filler]).any()
+        assert not _bits(out[1][filler]).any()
+    np.testing.assert_array_equal(got[2], base[2])
+    np.testing.assert_array_equal(got[3], base[3])
+    # in_win of a filler does not depend on its validity: the rows marked
+    # valid take the same window decisions, and are then pushed
+    live = run(valid | filler)
+    np.testing.assert_array_equal(live[3], base[3])
+    inside = filler & base[3]
+    assert inside.any() and (filler & ~base[3]).any()
+    assert (live[1][inside] != vel[inside]).any(axis=1).all()
 
 
 def test_fused_em3d_substep_zero_field_matches_exact_deposit():

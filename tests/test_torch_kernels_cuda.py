@@ -539,14 +539,41 @@ def test_fused_es3d_substep_kernel_tile_edges(cuda, order, margin, vscale):
         assert int((~plain[3] & valid).sum()) > 100, "needs actual spill"
 
 
+def _em3d_dead_rows(pos_p, vel_p, valid, tid, n_tiles, shape, seed):
+    """The rows with values of their own where the layout wrote zeros: the
+    fillers of real tiles (which B6 writes back as +0.0) and the sentinel
+    blocks (which come back as given); returns (position, velocity,
+    filler mask)."""
+    dev = pos_p.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dead = (~valid | (tid == n_tiles))[:, None]
+    span = torch.tensor(shape, dtype=torch.float32, device=dev)
+    pos = torch.where(dead, torch.rand(pos_p.shape, generator=g, device=dev)
+                      * span, pos_p)
+    vel = torch.where(dead, torch.randn(vel_p.shape, generator=g,
+                                        device=dev), vel_p)
+    return pos.contiguous(), vel.contiguous(), ~valid & (tid < n_tiles)
+
+
+def _em3d_bits_equal(got, plain, filler):
+    """Positions, velocities and in_win bit for bit (signs of zero too),
+    and every filler of a real tile +0.0."""
+    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
+        assert torch.equal(_bits(got[i]), _bits(plain[i])), name
+    assert bool(filler.any()), "needs fillers in real tiles"
+    for name, i in (("position", 0), ("velocity", 1)):
+        assert not bool(_bits(got[i][filler]).any()), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("margin,vscale,jitter,relativistic,c_light", [
     (2, 0.3, 0.0, False, 1.0), (2, 1.5, 0.0, True, 1.0),
     (1, 12.0, 1.0, False, 1.0), (2, 25.0, 1.0, True, 60.0)])
 def test_fused_em3d_substep_kernel_matches_plain(cuda, margin, vscale, jitter,
                                                  relativistic, c_light):
-    """Positions, velocities and in_win bit for bit; J differs only by the
-    order of its atomic sums, 1e-5 of max|J|."""
+    """Positions, velocities and in_win bit for bit, the fillers of real
+    tiles (given values of their own) +0.0; J differs only by the order of
+    its atomic sums, 1e-5 of max|J|."""
     from fusion_sim_torch.ops import fused_em3d
     from fusion_sim_torch.ops.sorted_deposit import Tiling3D
 
@@ -554,6 +581,8 @@ def test_fused_em3d_substep_kernel_matches_plain(cuda, margin, vscale, jitter,
     tiling = Tiling3D(tile=(8, 8, 8), block=128, margin=margin)
     pos_p, vel_p, valid, tid = _layout3d(cuda, vscale, shape, tiling, 8192,
                                          16, jitter)
+    pos_p, vel_p, filler = _em3d_dead_rows(pos_p, vel_p, valid, tid,
+                                           2 * 2 * 4, shape, 18)
     table = torch.tensor(np.random.default_rng(17).standard_normal(
         (*shape, 6)), dtype=torch.float32, device=cuda)
     args = (table, pos_p, vel_p, valid, tid, shape, tiling, 0.1, 0.1,
@@ -563,8 +592,7 @@ def test_fused_em3d_substep_kernel_matches_plain(cuda, margin, vscale, jitter,
     got = fused_em3d.fused_em3d_substep(*args, **kw)
     assert fused_em3d.LAUNCHES == before + 1
     plain = fused_em3d.fused_em3d_substep_plain(*args, **kw)
-    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
-        assert torch.equal(got[i], plain[i]), name
+    _em3d_bits_equal(got, plain, filler)
     scale = float(plain[2].abs().max())
     assert float((got[2] - plain[2]).abs().max()) <= 1e-5 * scale
     if vscale > 10:
@@ -581,10 +609,11 @@ def test_fused_em3d_substep_kernel_pipeline_edges(cuda, margin, block, vscale,
     wraps its window at the periodic edge; the particles fill only x < 8,
     so half the tiles are empty; a tile's ~16 blocks outrun one pass of
     the CTA's threads; rows faster than a cell go through the warps'
-    queues; the sentinel blocks come back as given with in_win False; and
-    margin 7 (a 23^3 window) takes the form that reads the corners
-    through L1.  Positions, velocities and in_win bit for bit, J to 1e-5
-    of max|J|."""
+    queues; the sentinel blocks come back as given with in_win False,
+    half of their rows marked valid; the fillers of real tiles, given
+    values of their own, come back +0.0; and margin 7 (a 23^3 window)
+    takes the form that reads the corners through L1.  Positions,
+    velocities and in_win bit for bit, J to 1e-5 of max|J|."""
     from fusion_sim_torch.ops import fused_em3d
     from fusion_sim_torch.ops.sorted_deposit import Tiling3D
 
@@ -600,21 +629,24 @@ def test_fused_em3d_substep_kernel_pipeline_edges(cuda, margin, block, vscale,
         derive_valid=True)
     vel_p = torch.stack([v0, v1, v2], -1).contiguous()
     n_tiles = 2 * 2 * 4
-    assert int((tid == n_tiles).sum()) > 0, "needs sentinel blocks"
+    sent = tid == n_tiles
+    assert int(sent.sum()) > 0, "needs sentinel blocks"
+    pos_p, vel_p, filler = _em3d_dead_rows(pos_p, vel_p, valid, tid,
+                                           n_tiles, shape, 20)
+    valid = valid | (sent & (torch.arange(sent.shape[0], device=cuda) % 2
+                             == 0))
     table = torch.tensor(rng.standard_normal((*shape, 6)),
                          dtype=torch.float32, device=cuda)
-    args = (table, pos_p.contiguous(), vel_p, valid, tid, shape, tiling, 0.1,
+    args = (table, pos_p, vel_p, valid, tid, shape, tiling, 0.1,
             0.1, (0.5, 0.8, 0.6), -0.01)
     kw = dict(c_light=c_light, relativistic=relativistic)
     got = fused_em3d.fused_em3d_substep(*args, **kw)
     plain = fused_em3d.fused_em3d_substep_plain(*args, **kw)
-    for name, i in (("position", 0), ("velocity", 1), ("in_win", 3)):
-        assert torch.equal(got[i], plain[i]), name
+    _em3d_bits_equal(got, plain, filler)
     scale = float(plain[2].abs().max())
     assert float((got[2] - plain[2]).abs().max()) <= 1e-5 * scale
-    sent = tid == n_tiles
-    assert torch.equal(got[0][sent], pos_p[sent])
-    assert torch.equal(got[1][sent], vel_p[sent])
+    assert torch.equal(_bits(got[0][sent]), _bits(pos_p[sent]))
+    assert torch.equal(_bits(got[1][sent]), _bits(vel_p[sent]))
     assert not bool(got[3][sent].any())
     if vscale > 1:
         moved = (torch.floor(got[0]) != torch.floor(pos_p)).any(-1)
