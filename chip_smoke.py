@@ -3053,19 +3053,21 @@ def sharded_pieces(torch, shd, sim, single, substep, args) -> str:
     with its halos, the kernel, the spill mask and count, the wrap back
     (with migration or repair and the dead rows' zeroing), one whole
     step; and the single-device step beside it."""
+    from fusion_sim_torch.ops.interp import patch_rows
+
     cfg, ring, st = sim.config, sim._ring, sim.state
     out = substep(*args)
     mask = (~out[3] | (st.tile_id >= shd._n_tiles(cfg))) & st.alive
-    idx, _ = shd._spill_rows(mask, cfg.spill_capacity, mask.shape[0])
+    _, idx = patch_rows(mask, (cfg.spill_capacity,))
     ok = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
     pieces = (
         ("frame shift", lambda: shd._to_local(cfg, st.position, ring.x_lo)),
         ("solve + halos", lambda: shd._solve_e_pad(
             cfg, ring, shd._neutralize(cfg, ring, st.rho), cfg.halo_w)),
         ("kernel", lambda: substep(*args)),
-        ("spill mask + count", lambda: shd._spill_rows(
+        ("spill mask + count", lambda: patch_rows(
             (~out[3] | (st.tile_id >= shd._n_tiles(cfg))) & st.alive,
-            cfg.spill_capacity, mask.shape[0])),
+            (cfg.spill_capacity,))),
         ("wrap back", lambda: shd._wrap_and_migrate(
             cfg, ring, st, out[0], out[1], st.alive,
             st.overflow, idx, ok, mask, shd._n_tiles(cfg))),

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -17,6 +19,18 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+def device_const(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A small constant of ``values`` on ``device``, made once (a copy to
+    the card waits for its queue); callers never write to it."""
+    return _const(tuple(values), torch.device(device), dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _const(values: tuple, device: torch.device,
+           dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def synchronize(device: torch.device) -> None:

@@ -28,25 +28,22 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import device_const, resolve_device
 from ..ops import fdtd
 from ..ops.esirkepov import esirkepov_deposit_2d, esirkepov_deposit_3d
 from ..ops.fused_em import fused_em2d_substep
 from ..ops.fused_em3d import fused_em3d_substep
-from ..ops.interp import cic_deposit, cic_gather_packed, spill_rows
-from ..ops.precision import PRECISIONS, resolve_precision
-from ..ops.repair import drain_check, init_free_list, repair_relocate
-from ..ops.sorted_deposit import (Tiling2D, Tiling3D, build_padded_layout,
-                                  esirkepov_sorted_2d, esirkepov_sorted_3d,
+from ..ops.interp import cic_deposit, cic_gather_packed, patch_rows
+from ..ops.sorted_deposit import (esirkepov_sorted_2d, esirkepov_sorted_3d,
                                   gather_sorted_2d, gather_sorted_3d)
 from ..ops.sorted_gather import gather_sorted_2d_window
-from ..utils.profiling import count, span
+from ..utils.profiling import span
+from ._sorted_shell import SortedShell
 
 
 class EMState(NamedTuple):
@@ -185,8 +182,8 @@ def push_and_deposit(config: EMConfig, e_field, b_field, position, velocity,
     velocity = boris_kick(velocity, e_at_p, b_at_p, qm_half_dt,
                           config.relativistic, config.c)
     coord_v = _coord_velocity(config, velocity)
-    dxv = torch.tensor(config.cell_size, dtype=torch.float32, device=dev)
-    grid_f = torch.tensor(shape, dtype=torch.float32, device=dev)
+    dxv = device_const(config.cell_size, dev)
+    grid_f = device_const(shape, dev)
     x1_unwrapped = position + config.dt * coord_v[:, :config.n_dim] / dxv
     j = _deposit(config, position, x1_unwrapped, coord_v, config.charge)
     return torch.remainder(x1_unwrapped, grid_f), velocity, j
@@ -364,7 +361,7 @@ def sorted_em_state_from_numpy(blob: dict, device=None) -> SortedEMState:
         unplaced=t("unplaced", np.int64))
 
 
-class SortedElectromagneticPIC:
+class SortedElectromagneticPIC(SortedShell):
     """EM PIC (2D3V or 3D) on the tile-sorted layout.
 
     Physics identical to ``ElectromagneticPIC(field_gather='centered')``.
@@ -401,16 +398,38 @@ class SortedElectromagneticPIC:
     took the exact patch.
     """
 
+    # Without repair a whole window resorts at its end at any
+    # resort_every, where the reference stops at 128 (its compiled-window
+    # limit) and resorts at the start of the next call: ROADMAP, Known
+    # differences, "Resort cadence"
+    _whole_window = math.inf
+
     def __init__(self, config: EMConfig, position, velocity,
                  e=None, b=None, tiling=None, resort_every: int = 6,
                  check_spill: bool = True, spill_fallback: bool = True,
                  spill_capacity: int = 16384, gather_backend: str = "xla",
                  pallas_precision: str | None = None, repair: bool = False,
                  repair_free_slots: int = 256, repair_eager: int = 0,
-                 eager_capacity: int | None = None, device=None,
-                 _state: dict | None = None):
-        self.spill_fallback = spill_fallback
-        self.spill_capacity = int(spill_capacity)
+                 eager_capacity: int | None = None, device=None):
+        self._configure(config, tiling, resort_every, check_spill,
+                        spill_fallback, spill_capacity, gather_backend,
+                        pallas_precision, repair, repair_free_slots,
+                        repair_eager, eager_capacity, device)
+        shape = config.grid_shape
+        self.state = SortedEMState(
+            **self._initial_layout(position, velocity, 3),
+            e=_fields_from(e, shape, self.device),
+            b=_fields_from(b, shape, self.device))
+        self._finish_state()
+
+    _state_from_numpy = staticmethod(sorted_em_state_from_numpy)
+
+    def _configure(self, config, tiling, resort_every, check_spill,
+                   spill_fallback, spill_capacity, gather_backend,
+                   pallas_precision, repair, repair_free_slots, repair_eager,
+                   eager_capacity, device):
+        if config.n_dim not in (2, 3):
+            raise ValueError("the sorted EM model is 2D3V or 3D")
         if gather_backend not in ("xla", "pallas", "fused"):
             raise ValueError(
                 f"gather_backend {gather_backend!r} (xla|pallas|fused)")
@@ -420,48 +439,13 @@ class SortedElectromagneticPIC:
             raise ValueError(
                 f"gather_backend={gather_backend!r} requires spill_fallback")
         self.gather_backend = gather_backend
-        if pallas_precision is not None and pallas_precision not in PRECISIONS:
-            raise ValueError(f"pallas_precision {pallas_precision!r}")
-        if pallas_precision == "exact_bf16_pack2" and config.n_dim != 2:
-            raise ValueError("exact_bf16_pack2 is 2D-only")
-        self.pallas_precision = pallas_precision
-        if repair and not spill_fallback:
-            raise ValueError("repair=True requires spill_fallback=True")
-        self.repair = repair
-        self.repair_free_slots = int(repair_free_slots)
-        # repair_eager=k: also relocate rows within k cells of leaving their
-        # window, carrying their own exact values (ops/repair.py)
-        self.repair_eager = int(repair_eager)
-        self.eager_capacity = (int(spill_capacity) if eager_capacity is None
-                               else int(eager_capacity))
-        if self.repair_eager and self.eager_capacity <= 0:
-            raise ValueError(f"eager_capacity={eager_capacity} must be > 0")
-        self.config = config
-        if config.n_dim not in (2, 3):
-            raise ValueError("the sorted EM model is 2D3V or 3D")
-        self.tiling = tiling or (Tiling2D() if config.n_dim == 2
-                                 else Tiling3D())
-        if self.repair_eager:
-            if not repair:
-                raise ValueError("repair_eager requires repair=True")
-            if not 0 < self.repair_eager <= self.tiling.margin:
-                raise ValueError(
-                    f"repair_eager={self.repair_eager} must be in "
-                    f"1..margin ({self.tiling.margin})")
-        resolve_precision(pallas_precision, self.tiling.dtype)
-        self.resort_every = resort_every
-        self.check_spill = check_spill
-        self.device = dev = resolve_device(device)
-        self._consts = (
-            config.charge / config.mass * config.dt * 0.5,
-            torch.tensor(config.cell_size, dtype=torch.float32, device=dev),
-            torch.tensor(config.grid_shape, dtype=torch.float32, device=dev))
-        self._since_sort = 0
-        self._spill_seen = 0
-        self._dropped_seen = 0
-        self._unplaced_seen = 0
-        self._need_resort = False
-        self._n_tiles = math.prod(self.tiling.n_tiles(config.grid_shape))
+        self._configure_layout(config, tiling, resort_every, check_spill,
+                               spill_fallback, spill_capacity, None, repair,
+                               repair_free_slots, repair_eager,
+                               eager_capacity, pallas_precision, device)
+        self._consts = (config.charge / config.mass * config.dt * 0.5,
+                        device_const(config.cell_size, self.device),
+                        device_const(config.grid_shape, self.device))
         self._step_once = (self._step_fused if gather_backend == "fused"
                            else self._step_split)
         self._cell_order = gather_backend == "fused" and config.n_dim == 2
@@ -470,106 +454,6 @@ class SortedElectromagneticPIC:
         # step makes a row invalid, so no zeroing pass is left to do
         self._fillers_zero = (gather_backend == "fused" and config.n_dim == 3
                               and not repair)
-        if _state is not None:                              # from_state
-            self.state = sorted_em_state_from_numpy(_state, dev)
-            self.n_real = int(self.state.valid.sum())
-            self._repair_state()
-            return
-        n = np.asarray(position).shape[0]
-        if n % self.tiling.block:
-            raise ValueError(f"particle count must be a multiple of "
-                             f"{self.tiling.block}")
-        shape = config.grid_shape
-        pos = torch.as_tensor(
-            np.asarray(position, np.float32).reshape(n, config.n_dim),
-            device=dev)
-        vel = torch.as_tensor(np.asarray(velocity, np.float32).reshape(n, 3),
-                              device=dev)
-        tid, pos_p, vel_p, valid_p, _ = build_padded_layout(
-            pos, shape, self.tiling, vel, reserve=repair, spread=repair,
-            derive_valid=True, cell_order=self._cell_order)
-        self.state = SortedEMState(
-            position=pos_p, velocity=vel_p, tile_id=tid, valid=valid_p,
-            e=_fields_from(e, shape, dev),
-            b=_fields_from(b, shape, dev), step=0, spill=0, spill_dropped=0)
-        self.n_real = n
-        self._repair_state()
-
-    def _repair_state(self) -> None:
-        """The repair stacks and counter, where repair is on and missing."""
-        if not self.repair:
-            return
-        if self.state.unplaced is None:
-            self.state = self.state._replace(unplaced=torch.zeros(
-                (), dtype=torch.int64, device=self.device))
-        if self.state.free_idx is None:
-            self._rebuild_free_list()
-
-    def _rebuild_free_list(self) -> None:
-        fidx, fcnt = init_free_list(self.state.tile_id, self.state.valid,
-                                    self._n_tiles, self.tiling.block,
-                                    self.repair_free_slots)
-        self.state = self.state._replace(free_idx=fidx, free_cnt=fcnt)
-
-    @classmethod
-    def from_state(cls, config: EMConfig, blob: dict, tiling=None,
-                   **kwargs) -> "SortedElectromagneticPIC":
-        """A model on a given sorted state (``sorted_em_state_from_numpy``
-        form) — no initial sort, so it starts from exactly that layout.
-        Keyword arguments as the constructor's."""
-        return cls(config, None, None, tiling=tiling, _state=blob, **kwargs)
-
-    def _check_spill(self):
-        # report the delta since the previous check, not the cumulative
-        # counter (one spill event must not re-warn forever)
-        spilled = self.state.spill - self._spill_seen
-        self._spill_seen += spilled
-        dropped = self.state.spill_dropped - self._dropped_seen
-        self._dropped_seen += dropped
-        if spilled or dropped:
-            if not self.spill_fallback:
-                msg = (f"{spilled} spilled rows are APPROXIMATE "
-                       f"(spill_fallback=False: deposits dropped, fields "
-                       f"gathered from the clamped window; charge "
-                       f"conservation broken)")
-            elif dropped:
-                msg = (f"{dropped} spilled rows exceeded spill_capacity="
-                       f"{self.spill_capacity} and were NOT patched (their "
-                       f"deposits are lost; raise spill_capacity)")
-            else:
-                msg = (f"{spilled} particle-deposits took the slow exact "
-                       f"fallback (out-drifted the sort margin)")
-            warnings.warn(
-                msg + f"; reduce resort_every (now {self.resort_every}) or "
-                f"raise tiling.margin (now {self.tiling.margin})",
-                RuntimeWarning, stacklevel=3)
-
-    def _spilled(self, mask: torch.Tensor) -> tuple[int, torch.Tensor | None]:
-        """The count of ``mask`` (one host read) and, with the fallback on,
-        the indices of its first ``spill_capacity`` rows in row order
-        (None when there is nothing to patch)."""
-        with span("host_read"):
-            spill = int(mask.sum())
-        if not (self.spill_fallback and spill):
-            return spill, None
-        cap = self.spill_capacity
-        idx = spill_rows(mask, spill, cap, mask.shape[0])[0]
-        return spill, idx[:min(spill, cap)]
-
-    def _relocated(self, state, x1, velocity, idx, x1_k, vel_k, in_win):
-        """With repair on: the patched rows ``idx`` (values ``x1_k``/
-        ``vel_k``) and, with ``repair_eager``, the band rows moved into
-        their new tile (``ops/repair.repair_relocate``); returns ``(x1,
-        velocity, state updates)``."""
-        if not self.repair:
-            return x1, velocity, {}
-        with span("repair"):
-            x1, velocity, _, extra = repair_relocate(
-                state, x1, velocity, idx, None, x1_k, vel_k,
-                self.config.grid_shape, self.tiling, self._n_tiles,
-                self.config.n_dim, in_win=in_win,
-                eager_keep=self.repair_eager, eager_cap=self.eager_capacity)
-        return x1, velocity, extra
 
     def _finish(self, state, x1, velocity, j, spill, **extra) -> None:
         """The Yee update, fillers zeroed (on the validity after any
@@ -577,21 +461,14 @@ class SortedElectromagneticPIC:
         advanced."""
         with span("solve"):
             e_new, b_new = yee_update(self.config, state.e, state.b, j)
-        if self.spill_fallback:
-            dropped = max(spill - self.spill_capacity, 0)
-        else:
-            dropped = spill
-        count("rows_patched", spill - dropped)
         with span("finish"):
             if not self._fillers_zero:
                 valid = extra.get("valid", state.valid)[:, None]
                 x1 = torch.where(valid, x1, 0.0)
                 velocity = torch.where(valid, velocity, 0.0)
             self.state = state._replace(
-                position=x1, velocity=velocity,
-                e=e_new, b=b_new, step=state.step + 1,
-                spill=state.spill + spill,
-                spill_dropped=state.spill_dropped + dropped, **extra)
+                position=x1, velocity=velocity, e=e_new, b=b_new,
+                **self._advanced(state, spill), **extra)
 
     def _step_fused(self) -> None:
         """One kernel covers gather + kick + drift + Esirkepov; the Yee
@@ -613,9 +490,9 @@ class SortedElectromagneticPIC:
         # exact re-push + deposit of out-of-window rows, from their inputs
         with span("patch"):
             spill_mask = ~in_win & state.valid
-            spill, idx = self._spilled(spill_mask)
+            spill, idx = patch_rows(spill_mask, self._capacities())
             x1w_k = vel_k = None
-            if idx is not None:
+            if idx.numel():
                 x0_k = torch.remainder(state.position[idx], grid_f)
                 eb_k = cic_gather_packed(table, x0_k, shape)
                 vel_k = boris_kick(state.velocity[idx], eb_k[:, :3],
@@ -654,8 +531,9 @@ class SortedElectromagneticPIC:
                                    shape, self.tiling)
         if self.spill_fallback:
             with span("patch"):
-                _, g_idx = self._spilled(~g_inw & state.valid)
-                if g_idx is not None:
+                _, g_idx = patch_rows(~g_inw & state.valid,
+                                      self._capacities())
+                if g_idx.numel():
                     eb[g_idx] = cic_gather_packed(
                         table, torch.remainder(state.position[g_idx], grid_f),
                         shape)
@@ -678,8 +556,8 @@ class SortedElectromagneticPIC:
                     x0, x1, charge, state.tile_id, config.dt, shape,
                     config.cell_size, self.tiling)
         with span("patch"):
-            spill, idx = self._spilled(spill_mask)
-            if idx is not None:
+            spill, idx = patch_rows(spill_mask, self._capacities())
+            if idx.numel():
                 # exact patch for up to spill_capacity margin out-drifters
                 # (charge conservation holds while spill stays under
                 # capacity)
@@ -689,61 +567,12 @@ class SortedElectromagneticPIC:
             x1 = torch.remainder(x1, grid_f)
         # relocation carries each patched row's own (exact) values
         with span("patch"):
-            x1_k = None if idx is None else x1[idx]
-            vel_k = None if idx is None else velocity[idx]
+            x1_k = x1[idx] if idx.numel() else None
+            vel_k = velocity[idx] if idx.numel() else None
             unspilled = ~spill_mask
         x1, velocity, extra = self._relocated(state, x1, velocity, idx, x1_k,
                                               vel_k, unspilled)
         self._finish(state, x1, velocity, j, spill, **extra)
-
-    def _resort(self) -> None:
-        """Rebuild the layout (one sort); fillers and invalid rows sink to
-        the trailing dead region, which the truncation drops (real count
-        conserved: periodic, no sinks)."""
-        with span("resort"):
-            s = self.state
-            n_state = s.position.shape[0]
-            tid, pos_p, vel_p, valid_p, _ = build_padded_layout(
-                s.position, self.config.grid_shape, self.tiling, s.velocity,
-                valid=s.valid, reserve=self.repair, spread=self.repair,
-                derive_valid=True, cell_order=self._cell_order)
-            self.state = s._replace(
-                position=pos_p[:n_state], velocity=vel_p[:n_state],
-                tile_id=tid[:n_state], valid=valid_p[:n_state])
-            if self.repair:
-                self._rebuild_free_list()
-
-    def step(self, n: int = 1) -> None:
-        """Advance ``n`` steps with the reference's resort cadence: a
-        whole window taken from a fresh sort runs ``resort_every`` steps
-        and THEN resorts (the counter stays 0); partial chunks count toward
-        the next window, whose resort runs at the start of a later call.
-        With repair the resort runs at the start of a window or after the
-        free stacks drained, and a call ends with the drain check (one
-        host read)."""
-        with span("step"):
-            done = 0
-            while done < n:
-                if self._since_sort >= self.resort_every \
-                        or self._need_resort:
-                    self._resort()
-                    self._since_sort = 0
-                    self._need_resort = False
-                k = min(n - done, self.resort_every - self._since_sort)
-                for _ in range(k):
-                    self._step_once()
-                done += k
-                if k == self.resort_every and not self.repair:
-                    self._resort()
-                else:
-                    self._since_sort += k
-            if self.repair:
-                cap = max(self.spill_capacity,
-                          self.eager_capacity if self.repair_eager else 0)
-                self._need_resort, self._unplaced_seen, _ = drain_check(
-                    self.state, self._unplaced_seen, 0, cap, self.n_real, n)
-            if self.check_spill:
-                self._check_spill()
 
     def energies(self) -> dict[str, float]:
         # fillers carry zero velocity, so they add nothing to either form

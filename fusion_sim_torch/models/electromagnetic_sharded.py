@@ -45,20 +45,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .._device import device_const
 from ..ops import fdtd
 from ..ops.esirkepov import esirkepov_deposit_2d, esirkepov_deposit_3d
 from ..ops.fused_em import fused_em2d_substep
 from ..ops.fused_em3d import fused_em3d_substep
-from ..ops.interp import cic_gather_packed
+from ..ops.interp import cic_gather_packed, patch_rows
 from ..ops.precision import resolve_precision
 from ..ops.sorted_deposit import (esirkepov_sorted_2d, esirkepov_sorted_3d,
                                   gather_sorted_2d, gather_sorted_3d)
 from ..parallel import halo, migration
 from .electromagnetic import EMConfig, _coord_velocity, _offsets, boris_kick
-from .electrostatic_sharded import (_Ring, _ShardedShell, _const, _dxv,
-                                    _max_disp, _migrate_masks, _n_tiles,
-                                    _relayout, _spill_counts, _spill_rows,
-                                    _to_local, _wrap_and_migrate, distribute,
+from .electrostatic_sharded import (_Ring, _ShardedShell, _dxv, _max_disp,
+                                    _migrate_masks, _n_tiles, _relayout,
+                                    _spill_counts, _to_local,
+                                    _wrap_and_migrate, distribute,
                                     make_sharded_es_free_init_fn)
 
 HALO_W = 2     # field halo for gathers + curls (CIC corners + stagger shift)
@@ -266,7 +267,7 @@ def make_sharded_step_fn(config: ShardedEMConfig, mesh, axis: str = "space"):
         e_new, b_new = _yee_local(base, state.e, state.b, j_local, groups)
 
         # ---- wrap + migrate ---------------------------------------------
-        x1 = torch.remainder(x1, _const(tuple(base.grid_shape), x1.device))
+        x1 = torch.remainder(x1, device_const(base.grid_shape, x1.device))
         if config.n_shards > 1:
             go_left, go_right = _migrate_masks(config, ring, x1[:, 0], alive)
             res = migration.migrate_ring((x1, velocity), alive, go_left,
@@ -318,7 +319,7 @@ def _push_deposit(config, table, lp0, state, n_tiles: int):
     dev = alive.device
     dxv = _dxv(config, dev)
     qm_half_dt = _qm_half_dt(base)
-    n_tot, capacity = alive.shape[0], config.spill_capacity
+    capacity = config.spill_capacity
     # rows of the trailing dead blocks (migrants dropped there) have no
     # window: forced onto the exact patch
     bad_block = state.tile_id >= n_tiles
@@ -328,12 +329,12 @@ def _push_deposit(config, table, lp0, state, n_tiles: int):
             *_fused_args(config, table, lp0, state, bad_block),
             precision=config.pallas_precision or "highest")
         d_mask = (~in_win | bad_block) & alive
-        idx, n_spill = _spill_rows(d_mask, capacity, n_tot)
+        n_spill, idx = patch_rows(d_mask, (capacity,))
         if n_spill:
             # re-pushed from the ORIGINAL rows: the kernel freezes the
             # out-of-window rows, and a trailing block's rows come back
             # as given
-            pseudo_f = _const(tuple(pseudo_shape), dev)
+            pseudo_f = device_const(pseudo_shape, dev)
             lp0_k = torch.remainder(lp0[idx], pseudo_f)
             eb_k = cic_gather_packed(table, lp0_k, pseudo_shape)
             vel_k = boris_kick(state.velocity[idx], eb_k[:, :3],
@@ -352,7 +353,7 @@ def _push_deposit(config, table, lp0, state, n_tiles: int):
     gather_fn = gather_sorted_2d if ndim == 2 else gather_sorted_3d
     eb, g_inw = gather_fn(table, lp0, state.tile_id, pseudo_shape, tiling)
     g_mask = (~g_inw | bad_block) & alive
-    g_idx, n_g = _spill_rows(g_mask, capacity, n_tot)
+    n_g, g_idx = patch_rows(g_mask, (capacity,))
     if n_g:
         eb[g_idx] = cic_gather_packed(table, lp0[g_idx], pseudo_shape)
     velocity = boris_kick(state.velocity, eb[:, :3], eb[:, 3:], qm_half_dt,
@@ -374,7 +375,7 @@ def _push_deposit(config, table, lp0, state, n_tiles: int):
             lp0, lp1, q_sorted, state.tile_id, base.dt, pseudo_shape,
             base.cell_size, tiling)
     d_mask = (d_mask | bad_block) & alive
-    idx, n_spill = _spill_rows(d_mask, capacity, n_tot)
+    n_spill, idx = patch_rows(d_mask, (capacity,))
     if n_spill:
         j_pad = j_pad + _esirkepov(base, lp0[idx], lp1[idx], coord_v[idx],
                                    base.charge, pseudo_shape)

@@ -34,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from .._device import device_const
 from ..ops.interp import cic_gather_packed
 from ..ops.precision import resolve_precision
 from ..parallel import halo
@@ -43,8 +44,8 @@ from .electromagnetic_sharded import (_EM_DTYPES, APRON_W, HALO_W,
                                       _check_backend, _esirkepov,
                                       _fused_args, _push_deposit,
                                       _qm_half_dt, _table, _yee_local)
-from .electrostatic_sharded import (_const, _dxv, _max_disp, _n_tiles,
-                                    _relayout, _spill_counts)
+from .electrostatic_sharded import (_dxv, _max_disp, _n_tiles, _relayout,
+                                    _spill_counts)
 from .electrostatic_sharded2d import (_make_grid_mig, _make_to_local_2d,
                                       _Mesh2D, _Mesh2DShell, _shift_xy,
                                       _wrap_back_2d, distribute_2d)
@@ -178,7 +179,7 @@ def make_sharded_em_step_fn_2d(config: ShardedEMConfig2D, mesh,
                                   m2.groups)
 
         # ---- wrap + dimension-ordered migration --------------------------
-        x1 = torch.remainder(x1, _const(tuple(base.grid_shape), x1.device))
+        x1 = torch.remainder(x1, device_const(base.grid_shape, x1.device))
         (x1, velocity), alive, overflow = migrate((x1, velocity), alive,
                                                   state.overflow)
         x1 = torch.where(alive[:, None], x1, 0.0)

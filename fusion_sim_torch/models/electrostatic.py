@@ -26,25 +26,22 @@ runs on the CUDA card unless given ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
-import inspect
 import math
-import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import device_const, resolve_device
 from ..ops.fused_pic import fused_es2d_substep
 from ..ops.fused_pic3d import fused_es3d_substep
-from ..ops.interp import cic_deposit_packed, cic_gather_packed, spill_rows
+from ..ops.interp import cic_deposit_packed, cic_gather_packed, patch_rows
 from ..ops.precision import resolve_precision
-from ..ops.repair import drain_check, init_free_list, repair_relocate
 from ..ops.solvers import gradient_periodic, poisson_fft
-from ..ops.sorted_deposit import (Tiling2D, Tiling3D, build_padded_layout,
-                                  deposit_sorted_2d, deposit_sorted_3d,
+from ..ops.sorted_deposit import (deposit_sorted_2d, deposit_sorted_3d,
                                   gather_sorted_2d, gather_sorted_3d)
-from ..utils.profiling import count, span
+from ..utils.profiling import span
+from ._sorted_shell import SortedShell
 
 
 class ESState(NamedTuple):
@@ -226,7 +223,7 @@ def sorted_state_from_numpy(blob: dict, device=None) -> SortedESState:
         free_cnt=t("free_cnt", np.int64), unplaced=t("unplaced", np.int64))
 
 
-class SortedElectrostaticPIC:
+class SortedElectrostaticPIC(SortedShell):
     """ES PIC (2D or 3D) on the tile-sorted layout with the fused particle
     kernel.
 
@@ -277,55 +274,11 @@ class SortedElectrostaticPIC:
                         spill_fallback, spill_capacity, spill_tiers, backend,
                         repair, repair_free_slots, repair_eager,
                         eager_capacity, pallas_precision, device)
-        n = np.asarray(position).shape[0]
-        if n % self.tiling.block:
-            raise ValueError(f"particle count must be a multiple of "
-                             f"{self.tiling.block}")
-        self.n_real = n
-        ndim = config.n_dim
-        pos = torch.as_tensor(
-            np.asarray(position, np.float32).reshape(n, ndim),
-            device=self.device)
-        vel = torch.as_tensor(
-            np.asarray(velocity, np.float32).reshape(n, ndim),
-            device=self.device)
-        tid, pos_p, vel_p, valid_p, _ = build_padded_layout(
-            pos, config.grid_shape, self.tiling, vel, reserve=repair,
-            spread=repair, derive_valid=True, cell_order=ndim == 3)
         self.state = SortedESState(
-            position=pos_p, velocity=vel_p, tile_id=tid, valid=valid_p,
-            step=0, spill=0, spill_dropped=0)
+            **self._initial_layout(position, velocity, config.n_dim))
         self._finish_state()
 
-    def _finish_state(self) -> None:
-        """The carried rho (pallas) and the repair stacks, where missing."""
-        if self.backend == "pallas" and self.state.rho is None:
-            self.state = self.state._replace(rho=self._initial_rho())
-        if self.repair:
-            if self.state.unplaced is None:
-                self.state = self.state._replace(unplaced=torch.zeros(
-                    (), dtype=torch.int64, device=self.device))
-            if self.state.free_idx is None:
-                self._rebuild_free_list()
-
-    @classmethod
-    def from_state(cls, config: ESConfig, blob: dict, tiling=None,
-                   **kwargs) -> "SortedElectrostaticPIC":
-        """A model on a given sorted state (``sorted_state_from_numpy``
-        form) — no initial sort, so it starts from exactly that layout.
-        Keyword arguments as the constructor's."""
-        self = cls.__new__(cls)
-        bound = inspect.signature(cls.__init__).bind(
-            self, config, None, None, tiling=tiling, **kwargs)
-        bound.apply_defaults()
-        kw = dict(bound.arguments)
-        for name in ("self", "position", "velocity"):
-            del kw[name]
-        self._configure(**kw)
-        self.state = sorted_state_from_numpy(blob, self.device)
-        self.n_real = int(self.state.valid.sum())
-        self._finish_state()
-        return self
+    _state_from_numpy = staticmethod(sorted_state_from_numpy)
 
     def _configure(self, config, tiling, resort_every, check_spill,
                    spill_fallback, spill_capacity, spill_tiers, backend,
@@ -336,134 +289,32 @@ class SortedElectrostaticPIC:
         if backend not in ("xla", "pallas"):
             raise ValueError(f"backend {backend!r} (xla|pallas)")
         self.backend = backend
-        self.spill_fallback = spill_fallback
-        self.spill_capacity = int(spill_capacity)
-        # spill_tiers: ascending patch capacities below spill_capacity; each
-        # step compacts at the smallest one that covers its spill count.  A
-        # pure performance knob: the same rows are patched either way.
-        if spill_tiers is not None:
-            ts = tuple(int(t) for t in spill_tiers)
-            if list(ts) != sorted(set(ts)) or any(t <= 0 for t in ts) \
-                    or (ts and ts[-1] >= self.spill_capacity):
-                raise ValueError(
-                    f"spill_tiers {spill_tiers!r} must be strictly "
-                    f"ascending positives below spill_capacity "
-                    f"{self.spill_capacity}")
-            if repair and ts:
-                raise ValueError("spill_tiers is incompatible with "
-                                 "repair=True (the relocation chain is "
-                                 "equilibrium-capacity-sized every step)")
-            self.spill_tiers = ts
-        else:
-            self.spill_tiers = ()
-        if repair and not spill_fallback:
-            raise ValueError("repair=True requires spill_fallback=True")
-        self.repair = repair
-        self.repair_free_slots = int(repair_free_slots)
-        self.repair_eager = int(repair_eager)
-        self.eager_capacity = (int(spill_capacity) if eager_capacity is None
-                               else int(eager_capacity))
-        if repair_eager and self.eager_capacity <= 0:
-            raise ValueError(f"eager_capacity={eager_capacity} must be > 0")
-        if pallas_precision not in (None, "highest", "exact_bf16",
-                                    "exact_bf16_pack", "exact_bf16_pack2",
-                                    "default"):
-            raise ValueError(f"pallas_precision {pallas_precision!r}")
-        if pallas_precision == "exact_bf16_pack2" and config.n_dim != 2:
-            raise ValueError("exact_bf16_pack2 is 2D-only")
-        self.tiling = tiling or (Tiling2D() if config.n_dim == 2
-                                 else Tiling3D())
-        if repair_eager:
-            if not repair:
-                raise ValueError("repair_eager requires repair=True")
-            if not 0 < repair_eager <= self.tiling.margin:
-                raise ValueError(
-                    f"repair_eager={repair_eager} must be in "
-                    f"1..margin ({self.tiling.margin})")
-        self.pallas_precision = pallas_precision
-        resolve_precision(pallas_precision, self.tiling.dtype)
-        self.config = config
-        self.resort_every = resort_every
-        self.check_spill = check_spill
-        self.device = resolve_device(device)
-        self._n_tiles = math.prod(self.tiling.n_tiles(config.grid_shape))
-        self._since_sort = 0
-        self._spill_seen = 0
-        self._dropped_seen = 0
-        self._unplaced_seen = 0
-        self._need_resort = False
+        self._configure_layout(config, tiling, resort_every, check_spill,
+                               spill_fallback, spill_capacity, spill_tiers,
+                               repair, repair_free_slots, repair_eager,
+                               eager_capacity, pallas_precision, device)
+        self._cell_order = config.n_dim == 3
+        self._step_once = (self._step_pallas if backend == "pallas"
+                           else self._step_xla)
 
-    def _rebuild_free_list(self) -> None:
-        fidx, fcnt = init_free_list(self.state.tile_id, self.state.valid,
-                                    self._n_tiles, self.tiling.block,
-                                    self.repair_free_slots)
-        self.state = self.state._replace(free_idx=fidx, free_cnt=fcnt)
-
-    def _check_spill(self):
-        # report the delta since the previous check, not the cumulative
-        # counter (one spill event must not re-warn forever)
-        spilled = self.state.spill - self._spill_seen
-        self._spill_seen += spilled
-        dropped = self.state.spill_dropped - self._dropped_seen
-        self._dropped_seen += dropped
-        if spilled or dropped:
-            if not self.spill_fallback:
-                msg = (f"{spilled} spilled rows are APPROXIMATE "
-                       f"(spill_fallback=False: deposits dropped, E gathered "
-                       f"from the clamped window; charge not conserved)")
-            elif dropped:
-                msg = (f"{dropped} spilled rows exceeded spill_capacity="
-                       f"{self.spill_capacity} and were NOT patched (their "
-                       f"deposits are lost; raise spill_capacity)")
-            else:
-                msg = (f"{spilled} particle-deposits took the slow exact "
-                       f"fallback (out-drifted the sort margin)")
-            warnings.warn(
-                msg + f"; reduce resort_every (now {self.resort_every}) or "
-                f"raise tiling.margin (now {self.tiling.margin})",
-                RuntimeWarning, stacklevel=3)
+    def _finish_state(self) -> None:
+        """The carried rho (pallas), then the repair state, where missing."""
+        if self.backend == "pallas" and self.state.rho is None:
+            self.state = self.state._replace(rho=self._initial_rho())
+        super()._finish_state()
 
     def _weights(self) -> torch.Tensor:
         w0 = self.config.charge / self.config.cell_volume
         return torch.where(self.state.valid, w0, 0.0).to(torch.float32)
 
     def _grid_f(self) -> torch.Tensor:
-        return torch.tensor(self.config.grid_shape, dtype=torch.float32,
-                            device=self.device)
+        return device_const(self.config.grid_shape, self.device)
 
     def _initial_rho(self) -> torch.Tensor:
         """Deposit at the current (freshly sorted) positions — seeds the
         carried rho."""
         pos = torch.remainder(self.state.position, self._grid_f())
         return cic_deposit_packed(pos, self._weights(), self.config.grid_shape)
-
-    def _patch_rows(self, spill_mask: torch.Tensor, spill: int):
-        """The first min(spill, capacity) rows of ``spill_mask`` in row
-        order, compacted at the smallest tier that covers ``spill``."""
-        cap = next((c for c in self.spill_tiers if spill <= c),
-                   self.spill_capacity)
-        return spill_rows(spill_mask, spill, cap,
-                          spill_mask.shape[0])[0][:min(spill, cap)]
-
-    def _repair(self, state, pos, vel, idx, pos_k, vel_k, in_win):
-        """``ops/repair.repair_relocate`` with this model's settings;
-        returns ``(pos, vel, state updates)``."""
-        with span("repair"):
-            pos, vel, _, extra = repair_relocate(
-                state, pos, vel, idx, None, pos_k, vel_k,
-                self.config.grid_shape, self.tiling, self._n_tiles,
-                self.config.n_dim, in_win=in_win,
-                eager_keep=self.repair_eager, eager_cap=self.eager_capacity)
-        return pos, vel, extra
-
-    def _advance(self, state, pos, vel, spill, **extra) -> None:
-        dropped = max(spill - self.spill_capacity, 0) if self.spill_fallback \
-            else spill
-        count("rows_patched", spill - dropped)
-        self.state = state._replace(
-            position=pos, velocity=vel, step=state.step + 1,
-            spill=state.spill + spill,
-            spill_dropped=state.spill_dropped + dropped, **extra)
 
     def _step_pallas(self) -> None:
         """Solve E from the carried rho, then ONE fused kernel does gather +
@@ -486,34 +337,30 @@ class SortedElectrostaticPIC:
                 shape, self.tiling, qm_dt, *c_ax,
                 precision=self.pallas_precision or "highest")
         with span("patch"):
-            spill_mask = (~in_win) & state.valid
-            # the one host read of the step: it picks the patch tier
-            with span("host_read"):
-                spill = int(spill_mask.sum())
-            idx = pos_k = vel_k = None
-            if self.spill_fallback and spill:
-                # exact patch of the rows that left their window; rows
-                # beyond spill_capacity stay frozen and count as dropped
-                idx = self._patch_rows(spill_mask, spill)
+            # the one host read of the step: it picks the patch tier; the
+            # rows that left their window are patched exactly, and rows
+            # beyond spill_capacity stay frozen and count as dropped
+            spill, idx = patch_rows((~in_win) & state.valid,
+                                    self._capacities())
+            pos_k = vel_k = None
+            if idx.numel():
                 grid_f = self._grid_f()
-                dx = torch.tensor(config.cell_size, dtype=torch.float32,
-                                  device=self.device)
+                dx = device_const(config.cell_size, self.device)
                 pos_k = torch.remainder(state.position[idx], grid_f)
                 e_k = cic_gather_packed(e_grid, pos_k, shape)
                 vel_k = state.velocity[idx] + qm_dt * e_k
                 pos_k = torch.remainder(pos_k + config.dt * vel_k / dx,
                                         grid_f)
                 rho_new = rho_new + cic_deposit_packed(pos_k, w[idx], shape)
-            if not self.repair and idx is not None:
-                pos[idx] = pos_k
-                vel[idx] = vel_k
-        extra = {}
-        if self.repair:
-            # patched rows carry their exact values to their new tile;
-            # band rows (eager) carry their own kernel outputs
-            pos, vel, extra = self._repair(state, pos, vel, idx, pos_k, vel_k,
-                                           in_win)
-        self._advance(state, pos, vel, spill, rho=rho_new, **extra)
+                if not self.repair:
+                    pos[idx] = pos_k
+                    vel[idx] = vel_k
+        # patched rows carry their exact values to their new tile; band
+        # rows (eager) carry their own kernel outputs
+        pos, vel, extra = self._relocated(state, pos, vel, idx, pos_k, vel_k,
+                                          in_win)
+        self.state = state._replace(position=pos, velocity=vel, rho=rho_new,
+                                    **self._advanced(state, spill), **extra)
 
     def _step_xla(self) -> None:
         """The same step in plain PyTorch: windowed deposit, exact patch of
@@ -526,19 +373,16 @@ class SortedElectrostaticPIC:
         gather = gather_sorted_2d if two_d else gather_sorted_3d
         with span("kernel"):
             grid_f = self._grid_f()
-            dx = torch.tensor(config.cell_size, dtype=torch.float32,
-                              device=self.device)
+            dx = device_const(config.cell_size, self.device)
             qm_dt = config.charge / config.mass * config.dt
             w = self._weights()
             rho, spill_t, spill_mask = deposit(state.position, w,
                                                state.tile_id, shape,
                                                self.tiling)
         with span("patch"):
-            with span("host_read"):
-                spill = int(spill_t)    # the one host read of the step
-            idx = None
-            if self.spill_fallback and spill:
-                idx = self._patch_rows(spill_mask, spill)
+            # the one host read of the step
+            spill, idx = patch_rows(spill_mask, self._capacities(), spill_t)
+            if idx.numel():
                 rho = rho + cic_deposit_packed(
                     torch.remainder(state.position[idx], grid_f), w[idx],
                     shape)
@@ -551,7 +395,7 @@ class SortedElectrostaticPIC:
         with span("kernel"):
             e_at_p, _ = gather(e_grid, state.position, state.tile_id, shape,
                                self.tiling)
-        if idx is not None:
+        if idx.numel():
             with span("patch"):
                 e_at_p[idx] = cic_gather_packed(
                     e_grid, torch.remainder(state.position[idx], grid_f),
@@ -565,70 +409,13 @@ class SortedElectrostaticPIC:
         if self.repair:
             with span("patch"):
                 pos_k = vel_k = None
-                if idx is not None:
+                if idx.numel():
                     pos_k, vel_k = position[idx], velocity[idx]
                 unspilled = ~spill_mask
-            position, velocity, extra = self._repair(
+            position, velocity, extra = self._relocated(
                 state, position, velocity, idx, pos_k, vel_k, unspilled)
-        self._advance(state, position, velocity, spill, **extra)
-
-    def _resort(self) -> None:
-        """Rebuild the layout (one sort); fillers and invalid rows sink to
-        the trailing dead region, which the truncation drops."""
-        with span("resort"):
-            s = self.state
-            n_state = s.position.shape[0]
-            tid, pos_p, vel_p, valid_p, _ = build_padded_layout(
-                s.position, self.config.grid_shape, self.tiling, s.velocity,
-                valid=s.valid, reserve=self.repair, spread=self.repair,
-                derive_valid=True, cell_order=self.config.n_dim == 3)
-            self.state = s._replace(
-                position=pos_p[:n_state], velocity=vel_p[:n_state],
-                tile_id=tid[:n_state], valid=valid_p[:n_state])
-            if self.repair:
-                self._rebuild_free_list()
-
-    def step(self, n: int = 1) -> None:
-        """Advance ``n`` steps with the reference's resort cadence: without
-        repair, a call spanning a whole window runs ``resort_every`` steps
-        and THEN resorts (the counter stays 0); partial chunks count toward
-        the next window, whose resort runs at the start of a later call.
-        With repair the resort runs at the start of a window, and a call
-        ends with the drain check."""
-        with span("step"):
-            step_once = (self._step_pallas if self.backend == "pallas"
-                         else self._step_xla)
-            done = 0
-            while done < n:
-                if self._since_sort >= self.resort_every or self._need_resort:
-                    self._resort()
-                    self._since_sort = 0
-                    self._need_resort = False
-                if (not self.repair and self._since_sort == 0
-                        and n - done >= self.resort_every
-                        and self.resort_every <= 128):
-                    for _ in range(self.resort_every):
-                        step_once()
-                    self._resort()
-                    done += self.resort_every
-                    continue
-                k = min(n - done, self.resort_every - self._since_sort)
-                for _ in range(k):
-                    step_once()
-                self._since_sort += k
-                done += k
-            if self.repair:
-                # a small unplaced trickle is normal (a row whose target tile
-                # is full keeps its exact patch and retries); a large delta
-                # means the stacks drained: resort at the next call.  Scaled to
-                # the buffer that carries the flux (eager configurations ride
-                # eager_capacity)
-                cap = max(self.spill_capacity,
-                          self.eager_capacity if self.repair_eager else 0)
-                self._need_resort, self._unplaced_seen, _ = drain_check(
-                    self.state, self._unplaced_seen, 0, cap, self.n_real, n)
-            if self.check_spill:
-                self._check_spill()
+        self.state = state._replace(position=position, velocity=velocity,
+                                    **self._advanced(state, spill), **extra)
 
     def energies(self) -> dict[str, float]:
         cfg = self.config

@@ -54,10 +54,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .._device import resolve_device
+from .._device import device_const, resolve_device
 from ..ops.fused_pic import fused_es2d_substep
 from ..ops.fused_pic3d import fused_es3d_substep
-from ..ops.interp import cic_deposit_packed, cic_gather_packed, spill_rows
+from ..ops.interp import cic_deposit_packed, cic_gather_packed, patch_rows
 from ..ops.precision import f32_matmul, resolve_precision
 from ..ops.repair import drain_check, make_sharded_free_init
 from ..ops.repair import sharded_repair_migrate
@@ -300,15 +300,8 @@ def _neutralize(config: ShardedESConfig, ring: _Ring, rho_local):
     return rho_local - total / float(math.prod(config.base.grid_shape))
 
 
-@functools.lru_cache(maxsize=64)
-def _const(values: tuple, device: torch.device) -> torch.Tensor:
-    """A small f32 constant on ``device``, made once (a copy to the card
-    waits for its queue); callers never write to it."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
-
-
 def _dxv(config, device):
-    return _const(tuple(config.base.cell_size), device)
+    return device_const(config.base.cell_size, device)
 
 
 def _max_disp(config, velocity, max_disp):
@@ -340,16 +333,6 @@ def _to_local(config: ShardedESConfig, position, x_lo: int):
     out = position.clone()       # one contiguous copy, then the x column
     out[:, 0] = lx + config.halo_w
     return out
-
-
-def _spill_rows(mask, capacity: int, n_tot: int):
-    """The rows of ``mask`` to patch exactly, in row order: the first
-    min(count, capacity) indices (one host read), and their count."""
-    count = int(mask.sum())
-    n = min(count, capacity)
-    if not n:
-        return mask.new_zeros((0,), dtype=torch.int64), count
-    return spill_rows(mask, count, capacity, n_tot)[0][:n], count
 
 
 def _migrate_masks(config, ring, gx, alive):
@@ -435,7 +418,7 @@ def _wrap_and_migrate(config, ring, state, lp1, velocity, alive, overflow,
     gx = torch.remainder(gx, float(base.grid_shape[0]))
     # the other axes wrap on their own periods, in one pass over the rows
     # (its x column is then replaced)
-    x1 = torch.remainder(lp1, _const(tuple(base.grid_shape), lp1.device))
+    x1 = torch.remainder(lp1, device_const(base.grid_shape, lp1.device))
     x1[:, 0] = gx
     ly1_w = x1[:, 1:]
     # one shard has no crossers; eager repair reads the masks even there
@@ -496,8 +479,7 @@ def make_sharded_sorted_es_step_fn(config: ShardedESConfig, mesh,
     def step(state: ShardedESState) -> ShardedESState:
         position, alive = state.position, state.alive
         dev = position.device
-        pseudo_f = _const(tuple(pseudo_shape), dev)
-        n_tot = position.shape[0]
+        pseudo_f = device_const(pseudo_shape, dev)
         lp0 = _to_local(config, position, ring.x_lo)
         bad_block = state.tile_id >= n_tiles_ps
 
@@ -506,7 +488,7 @@ def make_sharded_sorted_es_step_fn(config: ShardedESConfig, mesh,
         rho_pad, _, d_mask = deposit_fn(lp0, torch.where(bad_block, 0.0, w),
                                         state.tile_id, pseudo_shape, tiling)
         d_mask = (d_mask | bad_block) & alive
-        idx, n_spill = _spill_rows(d_mask, capacity, n_tot)
+        n_spill, idx = patch_rows(d_mask, (capacity,))
         if n_spill:
             rho_pad = rho_pad + cic_deposit_packed(
                 torch.remainder(lp0[idx], pseudo_f), w[idx], pseudo_shape)
@@ -518,7 +500,7 @@ def make_sharded_sorted_es_step_fn(config: ShardedESConfig, mesh,
         eb, g_inw = gather_fn(e_pad, lp0, state.tile_id, pseudo_shape,
                               tiling)
         g_mask = (~g_inw | bad_block) & alive
-        g_idx, n_g = _spill_rows(g_mask, capacity, n_tot)
+        n_g, g_idx = patch_rows(g_mask, (capacity,))
         if n_g:
             eb[g_idx] = cic_gather_packed(
                 e_pad, torch.remainder(lp0[g_idx], pseudo_f), pseudo_shape)
@@ -596,8 +578,7 @@ def make_sharded_sorted_es_pallas_step_fn(config: ShardedESConfig, mesh,
     def step(state: ShardedESState) -> ShardedESState:
         alive = state.alive
         dev = alive.device
-        pseudo_f = _const(tuple(pseudo_shape), dev)
-        n_tot = alive.shape[0]
+        pseudo_f = device_const(pseudo_shape, dev)
         # E from the carried rho, and the kernel's inputs on the
         # pseudo-grid; one fused kernel on them
         args, bad_block = _fused_inputs(config, ring, state)
@@ -607,7 +588,7 @@ def make_sharded_sorted_es_pallas_step_fn(config: ShardedESConfig, mesh,
 
         # ---- exact patch of out-of-window and trailing-block rows -------
         d_mask = (~in_win | bad_block) & alive
-        idx, n_spill = _spill_rows(d_mask, config.spill_capacity, n_tot)
+        n_spill, idx = patch_rows(d_mask, (config.spill_capacity,))
         if n_spill:        # (no row spilled: nothing to re-push)
             lp0_k = torch.remainder(lp0[idx], pseudo_f)
             vel_k = vel0[idx] + qm_dt * cic_gather_packed(e_pad, lp0_k,
@@ -646,7 +627,7 @@ def make_sharded_es_seed_rho_fn(config: ShardedESConfig, mesh,
     w0 = config.base.charge / config.base.cell_volume
 
     def seed(state: ShardedESState) -> torch.Tensor:
-        pseudo_f = _const(tuple(pseudo_shape), state.position.device)
+        pseudo_f = device_const(pseudo_shape, state.position.device)
         lp = _to_local(config, state.position, ring.x_lo)
         w = torch.where(state.alive, w0, 0.0).to(torch.float32)
         rho_pad = cic_deposit_packed(torch.remainder(lp, pseudo_f), w,

@@ -46,10 +46,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .._device import resolve_device
+from .._device import device_const, resolve_device
 from ..ops.fused_pic import fused_es2d_substep
 from ..ops.fused_pic3d import fused_es3d_substep
-from ..ops.interp import cic_deposit_packed, cic_gather_packed
+from ..ops.interp import cic_deposit_packed, cic_gather_packed, patch_rows
 from ..ops.precision import f32_matmul, resolve_precision
 from ..ops.solvers import poisson_dft2d, poisson_fft_sharded
 from ..ops.sorted_deposit import (deposit_sorted_2d, deposit_sorted_3d,
@@ -58,9 +58,9 @@ from ..parallel import halo, migration
 from ..parallel.mesh import all_gather_rows
 from .electrostatic import ESConfig
 from .electrostatic_sharded import (_ES_DTYPES, APRON_W, HALO_W,
-                                    ShardedESState, _ShardedShell, _const,
-                                    _dxv, _max_disp, _n_tiles, _precision,
-                                    _relayout, _spill_counts, _spill_rows,
+                                    ShardedESState, _ShardedShell, _dxv,
+                                    _max_disp, _n_tiles, _precision,
+                                    _relayout, _spill_counts,
                                     _use_gathered_dft)
 
 
@@ -365,8 +365,8 @@ def _wrap_back_2d(config, m2: _Mesh2D, lp1: torch.Tensor) -> torch.Tensor:
         x1[:, a] = lp1[:, a] - h
         if lo:
             x1[:, a] += float(lo)
-    return torch.remainder(x1, _const(tuple(config.base.grid_shape),
-                                      lp1.device))
+    return torch.remainder(x1, device_const(config.base.grid_shape,
+                                            lp1.device))
 
 
 def make_sharded_es_step_fn_2d(config: ShardedESConfig2D, mesh,
@@ -404,7 +404,7 @@ def make_sharded_es_step_fn_2d(config: ShardedESConfig2D, mesh,
         x1 = position + dt * velocity / _dxv(config, position.device)
         max_disp = _max_disp(config, velocity, state.max_disp)
         # ---- wrap + dimension-ordered migration --------------------------
-        x1 = torch.remainder(x1, _const(tuple(base.grid_shape), x1.device))
+        x1 = torch.remainder(x1, device_const(base.grid_shape, x1.device))
         (x1, velocity), alive, overflow = migrate((x1, velocity), alive,
                                                   state.overflow)
         x1 = torch.where(alive[:, None], x1, 0.0)
@@ -437,8 +437,7 @@ def make_sharded_sorted_es_step_fn_2d(config: ShardedESConfig2D, mesh,
     def step(state: ShardedESState) -> ShardedESState:
         alive = state.alive
         dev = alive.device
-        pseudo_f = _const(tuple(pseudo_shape), dev)
-        n_tot = alive.shape[0]
+        pseudo_f = device_const(pseudo_shape, dev)
         lp0 = to_local(state.position, *m2.lows)
         bad_block = state.tile_id >= n_tiles
 
@@ -447,7 +446,7 @@ def make_sharded_sorted_es_step_fn_2d(config: ShardedESConfig2D, mesh,
         rho_pad, _, d_mask = deposit_fn(lp0, torch.where(bad_block, 0.0, w),
                                         state.tile_id, pseudo_shape, tiling)
         d_mask = (d_mask | bad_block) & alive
-        idx, n_spill = _spill_rows(d_mask, capacity, n_tot)
+        n_spill, idx = patch_rows(d_mask, (capacity,))
         if n_spill:
             rho_pad = rho_pad + cic_deposit_packed(
                 torch.remainder(lp0[idx], pseudo_f), w[idx], pseudo_shape)
@@ -459,7 +458,7 @@ def make_sharded_sorted_es_step_fn_2d(config: ShardedESConfig2D, mesh,
         eb, g_inw = gather_fn(e_pad, lp0, state.tile_id, pseudo_shape,
                               tiling)
         g_mask = (~g_inw | bad_block) & alive
-        g_idx, n_g = _spill_rows(g_mask, capacity, n_tot)
+        n_g, g_idx = patch_rows(g_mask, (capacity,))
         if n_g:
             eb[g_idx] = cic_gather_packed(
                 e_pad, torch.remainder(lp0[g_idx], pseudo_f), pseudo_shape)
@@ -519,7 +518,7 @@ def make_sharded_sorted_es_pallas_step_fn_2d(
     def step(state: ShardedESState) -> ShardedESState:
         alive = state.alive
         dev = alive.device
-        pseudo_f = _const(tuple(pseudo_shape), dev)
+        pseudo_f = device_const(pseudo_shape, dev)
         args, bad_block = _fused_inputs_2d(config, m2, state)
         e_pad, lp0, vel0 = args[:3]
         lp1, velocity, rho_pad, in_win = substep(
@@ -527,8 +526,7 @@ def make_sharded_sorted_es_pallas_step_fn_2d(
 
         # ---- exact patch of out-of-window and trailing-block rows -------
         d_mask = (~in_win | bad_block) & alive
-        idx, n_spill = _spill_rows(d_mask, config.spill_capacity,
-                                   alive.shape[0])
+        n_spill, idx = patch_rows(d_mask, (config.spill_capacity,))
         if n_spill:
             lp0_k = torch.remainder(lp0[idx], pseudo_f)
             vel_k = vel0[idx] + qm_dt * cic_gather_packed(e_pad, lp0_k,
@@ -570,7 +568,7 @@ def make_sharded_es_seed_rho_fn_2d(config: ShardedESConfig2D, mesh,
     to_local = _make_to_local_2d(config)
 
     def seed(state: ShardedESState) -> torch.Tensor:
-        pseudo_f = _const(tuple(pseudo_shape), state.position.device)
+        pseudo_f = device_const(pseudo_shape, state.position.device)
         lp = to_local(state.position, *m2.lows)
         w = torch.where(state.alive, w0, 0.0).to(torch.float32)
         rho_pad = cic_deposit_packed(torch.remainder(lp, pseudo_f), w,

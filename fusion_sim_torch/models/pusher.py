@@ -46,6 +46,8 @@ from ..ops.rng import substep_uniforms
 from ..ops.sampling import INV_CDF_SIZE, build_inverse_cdf_table
 from ..utils.profiling import span
 from ..utils.render import render_bmag, render_density_overlay
+from ._sorted_shell import (check_tiers, run_cadence, with_free_list,
+                            with_repair_state)
 
 SPEC_SCHEMA = {
     # the validated spec of empic.js:31-41
@@ -473,12 +475,7 @@ class CylindricalParticlePusher:
             frac = max(1, int(128 * 12 / max(1, resort_every)))
             spill_capacity = int(max(4096, 1 << int(np.ceil(np.log2(
                 max(1, spec.n_total // frac))))))
-        ts = tuple(int(t) for t in spill_tiers)
-        if ts and (list(ts) != sorted(set(ts)) or any(t <= 0 for t in ts)
-                   or ts[-1] >= spill_capacity):
-            raise ValueError(
-                f"spill_tiers {spill_tiers!r} must be strictly ascending "
-                f"positives below spill_capacity {spill_capacity}")
+        ts = check_tiers(spill_tiers, spill_capacity)
         # validates backend before any state changes
         self._sorted_step = make_sorted_step_fn(
             spec, tiling, spill_capacity, backend, repair=repair,
@@ -493,10 +490,9 @@ class CylindricalParticlePusher:
         self._sorted_state = to_sorted_state(self.state, spec, tiling,
                                              reserve=repair)
         if repair:
-            self._sorted_state = self._sorted_state._replace(
-                unplaced=torch.zeros((), dtype=torch.int64,
-                                     device=self.device))
-            self._rebuild_free_list()
+            self._sorted_state = with_repair_state(
+                self._sorted_state, self._sorted_n_tiles(), tiling.block,
+                self._sorted_free_slots)
         self._sorted_density = make_sorted_density_fn(spec)
         self._sorted_resort = make_sorted_resort_fn(spec, tiling,
                                                     reserve=repair)
@@ -504,16 +500,9 @@ class CylindricalParticlePusher:
         self._sorted_unplaced_seen = 0
         self._sorted_need_resort = False
 
-    def _rebuild_free_list(self) -> None:
-        from ..ops.repair import init_free_list
-
-        st = self._sorted_state
-        fidx, fcnt = init_free_list(
-            st.tile_id, st.valid,
-            math.prod(self._sorted_tiling.n_tiles((self.spec.nr,
-                                                   self.spec.nz))),
-            self._sorted_tiling.block, self._sorted_free_slots)
-        self._sorted_state = st._replace(free_idx=fidx, free_cnt=fcnt)
+    def _sorted_n_tiles(self) -> int:
+        return math.prod(self._sorted_tiling.n_tiles((self.spec.nr,
+                                                      self.spec.nz)))
 
     def disable_sorted_path(self) -> None:
         """Return to the plain layout (live rows in layout order)."""
@@ -536,41 +525,21 @@ class CylindricalParticlePusher:
         with span("resort"):
             self._sorted_state = self._sorted_resort(self._sorted_state)
             if self._sorted_repair:
-                self._rebuild_free_list()
+                self._sorted_state = with_free_list(
+                    self._sorted_state, self._sorted_n_tiles(),
+                    self._sorted_tiling.block, self._sorted_free_slots)
 
     def _step_sorted(self, n: int) -> None:
-        """The reference's cadence: without repair, a call spanning a whole
-        window runs ``resort_every`` steps and then resorts (the counter
-        stays 0); partial chunks count toward the next window, whose resort
-        runs at the start of a later call.  With repair the resort runs at
-        a window's start or after the free stacks drained."""
-        from ..ops.repair import drain_check
-
-        cadence = self._sorted_resort_every
-        done = 0
-        while done < n:
-            if self._sorted_since >= cadence or self._sorted_need_resort:
-                self._resort_sorted()
-                self._sorted_since = 0
-                self._sorted_need_resort = False
-            if (not self._sorted_repair and self._sorted_since == 0
-                    and n - done >= cadence and cadence <= 128):
-                for _ in range(cadence):
-                    self._sorted_step_once()
-                self._resort_sorted()
-                done += cadence
-                continue
-            k = min(n - done, cadence - self._sorted_since)
-            for _ in range(k):
-                self._sorted_step_once()
-            self._sorted_since += k
-            done += k
-        if self._sorted_repair:
-            # one host read a call: resort at the next call if the stacks
-            # drained (a large unplaced delta)
-            (self._sorted_need_resort, self._sorted_unplaced_seen,
-             _) = drain_check(self._sorted_state, self._sorted_unplaced_seen,
-                              0, self._sorted_capacity, self.spec.n_total, n)
+        """``run_cadence`` on the sorted layout: with repair a call ends
+        with the drain check, sized by the patch buffer."""
+        (self._sorted_since, self._sorted_need_resort,
+         self._sorted_unplaced_seen) = run_cadence(
+            n, self._sorted_since, self._sorted_need_resort,
+            self._sorted_unplaced_seen,
+            resort_every=self._sorted_resort_every,
+            repair=self._sorted_repair, step_once=self._sorted_step_once,
+            resort=self._resort_sorted, state=lambda: self._sorted_state,
+            buffer=self._sorted_capacity, n_real=self.spec.n_total)
 
     # -------------------------------------------------------- simulation
     def precalc(self) -> None:

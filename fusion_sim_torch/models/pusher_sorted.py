@@ -46,12 +46,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import device_const, resolve_device
 from ..ops.boris import gather_nearest, pack_coefficients, velocity_from_rows
 from ..ops.deposit import deposit_moments, ema_moments, normalize_moments
 from ..ops.fused_pusher import cell_coords as _cell_coords
 from ..ops.fused_pusher import fused_pusher_substep
-from ..ops.interp import spill_rows
+from ..ops.interp import patch_rows, spill_rows
 from ..ops.push import sink_respawn
 from ..ops.repair import allocate_slots, relocate
 from ..ops.sorted_deposit import (Tiling2D, build_padded_layout,
@@ -79,10 +79,6 @@ class SortedPusherState(NamedTuple):
     free_idx: torch.Tensor | None = None  # (n_tiles, F) dead-slot stacks
     free_cnt: torch.Tensor | None = None  # (n_tiles,)
     unplaced: torch.Tensor | None = None  # cumulative rows left in place
-
-
-def _filler(device) -> torch.Tensor:
-    return torch.tensor(FILLER, dtype=torch.float32, device=device)
 
 
 def sorted_pusher_state_from_numpy(blob: dict, device=None
@@ -172,28 +168,14 @@ def make_sorted_resort_fn(spec, tiling: Tiling2D, reserve: bool = False):
             derive_valid=True)
         tid, _, pos, vel, alive, valid = (t[:n_state] for t in out[:-1])
         keep = valid[:, None]
+        filler = device_const(FILLER, pos.device)
         return state._replace(
-            position=torch.where(keep, pos, _filler(pos.device)),
+            position=torch.where(keep, pos, filler),
             velocity=torch.where(keep, vel, 0.0),
             alive=torch.where(valid, alive, 1.0),
             valid=valid, tile_id=tid)
 
     return resort
-
-
-def _spilled_rows(mask: torch.Tensor, capacities: tuple[int, ...]
-                  ) -> tuple[int, torch.Tensor]:
-    """``(count, idx)``: the number of rows set in ``mask`` (one host read)
-    and the first min(count, capacities[-1]) of them in row order,
-    compacted at the smallest capacity that covers the count (a buffer
-    size only: every tier yields the same rows)."""
-    with span("host_read"):
-        n = int(mask.sum())
-    k = min(n, capacities[-1])
-    if not k:
-        return n, torch.empty((0,), dtype=torch.int64, device=mask.device)
-    cap = next(c for c in capacities if k <= c)
-    return n, spill_rows(mask, n, cap, mask.shape[0])[0][:k]
 
 
 def _radius(position: torch.Tensor) -> torch.Tensor:
@@ -238,7 +220,7 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
                 counts.update(extra, valid=v)
             return state._replace(
                 position=torch.where(v[:, None], position,
-                                     _filler(position.device)),
+                                     device_const(FILLER, position.device)),
                 velocity=torch.where(v[:, None], velocity, 0.0),
                 alive=torch.where(v, alive, 1.0), **counts)
 
@@ -261,7 +243,7 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
             rows, g_inw = window_gather(packed, cell, state.tile_id)
         with span("patch"):
             g_mask = ~g_inw & valid
-            n_g, idx = _spilled_rows(g_mask, caps)
+            n_g, idx = patch_rows(g_mask, caps)
             if idx.numel():
                 pk = state.position[idx]
                 rows[idx] = gather_nearest(packed, _radius(pk), pk[:, 2])
@@ -276,7 +258,7 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
             sink = sink[:, 0]
         with span("patch"):
             s_mask = ~s_inw & valid
-            n_s, idx2 = _spilled_rows(s_mask, caps)
+            n_s, idx2 = patch_rows(s_mask, caps)
             if idx2.numel():
                 pk2 = next_pos[idx2]
                 sink[idx2] = gather_nearest(sink_grid, _radius(pk2),
@@ -321,7 +303,7 @@ def make_sorted_step_fn(spec, tiling: Tiling2D, spill_capacity: int = 16384,
         # rows past spill_capacity stay frozen with sink = 1
         with span("patch"):
             mask = ~inw & state.valid
-            n_sp, idx = _spilled_rows(mask, caps)
+            n_sp, idx = patch_rows(mask, caps)
             if idx.numel():
                 pk = state.position[idx]
                 rows_k = gather_nearest(packed13[..., :12], _radius(pk),
@@ -395,7 +377,7 @@ def to_sorted_state(state, spec, tiling: Tiling2D,
 
     base = SortedPusherState(
         position=pad(state.position, 0.0,
-                     _filler(dev).expand(n_p - n0, 3)),
+                     device_const(FILLER, dev).expand(n_p - n0, 3)),
         velocity=pad(state.velocity, 0.0,
                      torch.zeros((n_p - n0, 3), dtype=f32, device=dev)),
         alive=pad(state.alive, 1.0,

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import device_const
 from .interp import cic_gather_packed
 
 
@@ -136,11 +137,10 @@ def gather_staggered(field: torch.Tensor, position: torch.Tensor,
     ``field``: (*shape, 3); ``position``: (N, d) grid units.  Component c
     is sampled on its own staggered lattice by shifting the particle
     coordinate by -offset[c].  Returns (N, 3)."""
-    grid = torch.tensor(shape, dtype=torch.float32, device=position.device)
+    grid = device_const(shape, position.device)
     cols = []
     for comp, off in enumerate(offsets):
-        shift = torch.tensor(off, dtype=torch.float32,
-                             device=position.device)
+        shift = device_const(off, position.device)
         shifted = torch.remainder(position - shift, grid)
         cols.append(cic_gather_packed(field[..., comp], shifted, shape))
     return torch.stack(cols, dim=-1)

@@ -17,6 +17,9 @@ import math
 
 import torch
 
+from .._device import device_const
+from ..utils.profiling import span
+
 
 def _strides(shape: tuple[int, ...], device) -> torch.Tensor:
     """Row-major flattening strides for ``shape``."""
@@ -24,7 +27,7 @@ def _strides(shape: tuple[int, ...], device) -> torch.Tensor:
     for n in reversed(shape):
         out.append(s)
         s *= n
-    return torch.tensor(out[::-1], dtype=torch.int64, device=device)
+    return device_const(out[::-1], device, torch.int64)
 
 
 def _corner_weights(position: torch.Tensor):
@@ -50,12 +53,12 @@ def cic_deposit(position: torch.Tensor, weights: torch.Tensor,
     """Deposit per-particle ``weights`` (N,) at ``position`` (N, d) onto a
     periodic grid of ``shape`` with CIC shapes; returns the summed grid."""
     base, frac = _corner_weights(position)
-    dims = torch.tensor(shape, dtype=torch.int64, device=position.device)
+    dims = device_const(shape, position.device, torch.int64)
     strides = _strides(shape, position.device)
     flat = torch.zeros(math.prod(shape), dtype=weights.dtype,
                        device=weights.device)
     for corner in _corners(len(shape)):
-        offs = torch.tensor(corner, dtype=torch.int64, device=position.device)
+        offs = device_const(corner, position.device, torch.int64)
         idx = torch.remainder(base + offs, dims)
         flat.index_add_(0, (idx * strides).sum(1),
                         _corner_weight(frac, corner, weights))
@@ -69,11 +72,11 @@ def cic_gather(grid: torch.Tensor, position: torch.Tensor,
     base, frac = _corner_weights(position)
     channels = grid.shape[len(shape):]
     flat = grid.reshape((-1,) + tuple(channels))
-    dims = torch.tensor(shape, dtype=torch.int64, device=position.device)
+    dims = device_const(shape, position.device, torch.int64)
     strides = _strides(shape, position.device)
     out = 0.0
     for corner in _corners(len(shape)):
-        offs = torch.tensor(corner, dtype=torch.int64, device=position.device)
+        offs = device_const(corner, position.device, torch.int64)
         idx = torch.remainder(base + offs, dims)
         w = _corner_weight(
             frac, corner,
@@ -90,8 +93,8 @@ def cic_deposit_packed(position: torch.Tensor, weights: torch.Tensor,
     """CIC deposit with a single scatter-add row per particle (exact)."""
     corners = _corners(len(shape))
     base, frac = _corner_weights(position)
-    base = torch.remainder(
-        base, torch.tensor(shape, dtype=torch.int64, device=position.device))
+    base = torch.remainder(base,
+                           device_const(shape, position.device, torch.int64))
     flat_idx = (base * _strides(shape, position.device)).sum(1)
     packed_vals = torch.stack(
         [_corner_weight(frac, c, weights) for c in corners], dim=-1)
@@ -154,6 +157,26 @@ def spill_rows(spill_mask: torch.Tensor, spill, capacity: int,
                                fill_value=n_total)[:, 0]
     ok = torch.arange(capacity, device=spill_mask.device) < spill
     return idx, ok
+
+
+def patch_rows(mask: torch.Tensor, capacities: tuple[int, ...],
+               count: torch.Tensor | None = None
+               ) -> tuple[int, torch.Tensor]:
+    """The rows of ``mask`` that take the exact patch: ``(count, idx)``.
+
+    ``count`` is the number of rows set in ``mask``, read on the host once
+    (the ``host_read`` span), from ``count`` where the caller already has
+    it on the device; ``idx`` holds the first min(count, capacities[-1])
+    of them in row order, compacted at the smallest of the ascending
+    ``capacities`` that covers them (a buffer size only: every capacity
+    yields the same rows), and is empty when there is nothing to patch."""
+    with span("host_read"):
+        n = int(mask.sum() if count is None else count)
+    k = min(n, capacities[-1])
+    if not k:
+        return n, torch.empty((0,), dtype=torch.int64, device=mask.device)
+    cap = next(c for c in capacities if k <= c)
+    return n, spill_rows(mask, n, cap, mask.shape[0])[0][:k]
 
 
 def spill_rows_cond(spill_mask: torch.Tensor, spill, capacity: int,

@@ -38,6 +38,7 @@ import warnings
 
 import torch
 
+from .._device import device_const
 from ..utils.profiling import span
 from .interp import spill_rows
 from .sorted_deposit import tile_ids, tile_ids_3d
@@ -265,7 +266,7 @@ def repair_relocate(state, x1, velocity, idx, ok, pos_k, vel_k, shape,
     (x1, velocity), valid = relocate((x1, velocity), state.valid, idx, dest,
                                      placed, (pos_k, vel_k), n_tot)
     if eager_keep:
-        grid_f = torch.tensor(shape, dtype=torch.float32, device=x1.device)
+        grid_f = device_const(shape, x1.device)
         mask_e = in_win & valid & near_band_mask(x1, state.tile_id, shape,
                                                  tiling, eager_keep)
         n_band = mask_e.sum()

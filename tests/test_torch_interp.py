@@ -74,3 +74,36 @@ def test_spill_rows_cond_matches_reference(n_spill, capacity):
     idx_u, ok_u = tp.spill_rows(torch.tensor(mask), spill, capacity, n_total)
     np.testing.assert_array_equal(idx_u.numpy(), np.asarray(idx_j))
     np.testing.assert_array_equal(ok_u.numpy(), np.asarray(ok_j))
+
+
+# (rows set, capacities, the caller's count or None): nothing to patch,
+# a count inside the second tier, a count past the last capacity, and a
+# count the caller already holds on the device (read as given)
+@pytest.mark.parametrize("n_spill,capacities,supplied", [
+    (0, (16, 64), None), (40, (16, 64), None), (300, (16, 64), None),
+    (40, (16, 64), 12)])
+def test_patch_rows_matches_reference(n_spill, capacities, supplied,
+                                      monkeypatch):
+    n_total = 3000
+    rng = np.random.default_rng(n_spill)
+    mask = np.zeros(n_total, bool)
+    mask[rng.choice(n_total, n_spill, replace=False)] = True
+    orig, used = tp.spill_rows, []
+
+    def spill_rows(*args):          # records the capacity compacted at
+        used.append(args[2])
+        return orig(*args)
+
+    monkeypatch.setattr(tp, "spill_rows", spill_rows)
+    count = None if supplied is None else torch.tensor(supplied)
+    n, idx = tp.patch_rows(torch.tensor(mask), capacities, count)
+    spill = n_spill if supplied is None else supplied
+    assert n == spill and idx.dtype == torch.int64
+    cap = capacities[-1]
+    ref = np.asarray(jx.spill_rows(jnp.asarray(mask), jnp.int32(spill), cap,
+                                   n_total)[0])
+    k = min(spill, cap)
+    np.testing.assert_array_equal(idx.numpy(), ref[:k])
+    # compacted at the smallest capacity that covers the rows, or not at
+    # all when there is nothing to patch
+    assert used == ([next(c for c in capacities if k <= c)] if k else [])
