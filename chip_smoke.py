@@ -1287,6 +1287,13 @@ def em3d_bound_ms(n_rows: int, n_valid: int, shape, block: int):
     return (*bound(bytes_moved, 700 * n_valid), bytes_moved)
 
 
+def yee3d_bound_ms(shape):
+    """Least time for one 3D Yee update: E, B and J read once and E and B
+    written once (60 B a cell), against 54 f32 operations a cell."""
+    cells = math.prod(shape)
+    return (*bound(cells * 5 * 12, cells * 54), cells * 5 * 12)
+
+
 def phase3_3d(torch, es, em, f3, fe3, Tiling3D, build_padded_layout, dev,
               n3: int = 1 << 20, cells: int = 64):
     from fusion_sim_torch.examples import bench_3d as b3d
@@ -1549,6 +1556,7 @@ def phase7_es3d_main(torch, es, f3, smi, kernel_modules):
 def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
     from fusion_sim_torch.examples import bench_3d as b3d
     from fusion_sim_torch.ops import fdtd
+    from fusion_sim_torch.ops import yee3d as y3
 
     n, resort, windows = b3d.N, b3d.RESORT, 3
     t0 = time.perf_counter()
@@ -1568,12 +1576,14 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
                    f"{time.perf_counter() - t0:.3f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(kernel_modules)
+    zero_counts((*kernel_modules, y3))
     rates = run_windows(torch, sim, windows, resort)
     launches = fe3.LAUNCHES
     steps = windows * resort
-    if launches != steps:
-        raise AssertionError(f"B6 launches {launches} != steps {steps}")
+    if launches != steps or y3.LAUNCHES != steps:
+        raise AssertionError(f"B6 launches {launches}, Y1 launches "
+                             f"{y3.LAUNCHES} != steps {steps}")
+    y_launches = y3.LAUNCHES
     resorted = resort_launches(kernel_modules, windows, "8 EM 3D")
     st = sim.state
     check_em_state(torch, st, n)
@@ -1611,13 +1621,33 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
                    f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     c_ms = median_ms(torch, lambda: fdtd.center_fields(
         st.e, st.b, fdtd.E_OFFSETS_3D, fdtd.B_OFFSETS_3D))
-    j = torch.zeros_like(st.e)
-    y_ms = median_ms(torch, lambda: em.yee_update(cfg, st.e, st.b, j))
-    log("8 EM 3D", f"center_fields {c_ms:.4f} ms, Yee update {y_ms:.4f} ms "
-                   f"(128^3)")
-    del args, table, j
+    # Y1 on the main path's fields and the J of its last step's deposit
+    j = fe3.fused_em3d_substep(*args)[2]
+    yee = (st.e, st.b, j, cfg.dt, cfg.cell_size, cfg.c, cfg.eps0)
+    got, plain = y3.yee_update_3d(*yee), y3.yee_update_3d_plain(*yee)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+        raise AssertionError("Y1 differs from the plain Yee update")
+    del got, plain
+    y_ms = median_ms(torch, lambda: y3.yee_update_3d(*yee))
+    yp_ms = median_ms(torch, lambda: y3.yee_update_3d_plain(*yee))
+    yb_ms, yb_by, yb_bytes = yee3d_bound_ms(cfg.grid_shape)
+    log("8 EM 3D", f"center_fields {c_ms:.4f} ms; Y1 yee3d (128^3): E and B "
+                   f"equal the plain version's; kernel {y_ms:.4f} ms "
+                   f"({yb_bytes / (y_ms * 1e-3) / 1e9:.1f} GB/s effective, "
+                   f"{100 * yb_ms / y_ms:.1f}% of its bound), plain "
+                   f"{yp_ms:.4f} ms, bound {yb_ms:.4f} ms ({yb_by})")
+    del args, table, j, yee
     profile_window(torch, "8 EM 3D", f"{resort} steps + resort",
                    lambda: sim.step(resort))
+    y1 = {
+        "name": "Y1:yee3d", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/yee3d.cu",
+        "replaces": "none: the reference's yee_update is XLA",
+        "launches": y_launches, "max_abs_err": 0.0, "ms": y_ms,
+        "plain_ms": yp_ms, "bound_ms": yb_ms, "bound_by": yb_by,
+        "library_ms": None,
+    }
     return {
         "name": "B6:em3d_substep", "route": "cuda",
         "source": "fusion_sim_torch/csrc/em3d_substep.cu",
@@ -1625,7 +1655,7 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }, resorted
+    }, y1, resorted
 
 
 # -- 8b. the bucket resort on each resort cell's state ------------------------
@@ -3735,7 +3765,8 @@ def main() -> None:
     b5 = phase7_es3d_main(torch, es, f3, smi, kernel_modules)
     torch.cuda.empty_cache()
     log("7 ES 3D", f"done at {time.perf_counter() - t_start:.1f} s")
-    b6, em_resorted = phase8_em3d_main(torch, em, fe3, smi, kernel_modules)
+    b6, y1, em_resorted = phase8_em3d_main(torch, em, fe3, smi,
+                                           kernel_modules)
     torch.cuda.empty_cache()
     log("8 EM 3D", f"done at {time.perf_counter() - t_start:.1f} s")
     resorts = phase8b_resort(torch, smi, {"ES 2D 10M": es_resorted,
@@ -3789,7 +3820,7 @@ def main() -> None:
         if not entry["launches"]:
             raise AssertionError(f"no launch of {entry['name']}")
     print(json.dumps({"kernels": [b1, *b1_ablations, b2, *b3, b4, b3_em, b5,
-                                  b6, *resorts, x1, *sharded, *dry]}),
+                                  b6, y1, *resorts, x1, *sharded, *dry]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

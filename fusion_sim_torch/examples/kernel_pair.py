@@ -2,7 +2,7 @@
 with the main paths of both.
 
     python -m fusion_sim_torch.examples.kernel_pair --other DIR \\
-        [--kernels b4,b5,b3,b6,x1] [--ablate] [--em2d-path] [--es3d-path] \\
+        [--kernels b4,b5,b3,b6,x1,y1] [--ablate] [--em2d-path] [--es3d-path] \\
         [--em3d-path] [--pusher-path] [--em-pallas-path] [--resort-path]
 
 ``DIR`` holds another commit's ``fusion_sim_torch/`` and ``chip_smoke.py``:
@@ -45,6 +45,12 @@ wrapper's host work is in neither time:
   version bit for bit, and this checkout's B6 on the rows ordered by cell;
 * X1 (``contraction_depth``) over the experiment's default sweep (S 305,
   G 32, m 96, p 1024; both orders, both precisions, K 24 .. 128);
+* Y1 (``yee3d``) at 128^3 (seeded E, B and J of scale 0.01): the plain
+  Yee update (``ops/yee3d.yee_update_3d_plain``, the rolls and differences
+  of ``ops/fdtd.py``), which is what the other checkout runs where it has
+  no ``csrc/yee3d.cu`` and the same ``ops/fdtd.py``, against this
+  checkout's kernel, held bit for bit, beside its byte bound (60 B a
+  cell);
 * ``--ablate``: B4, B5 and B6 of both checkouts rebuilt with their
   corner reads replaced by constants ("no gather") and with their deposit
   switched off ("no deposit"), B4 of both also with its J flush switched
@@ -90,11 +96,12 @@ from ..ops import fused_em as fe
 from ..ops import fused_em3d as fe3
 from ..ops import fused_pic3d as f3
 from ..ops import sorted_gather as sg
+from ..ops import yee3d as y3
 from ..ops.sorted_deposit import Tiling3D, build_padded_layout
 
 ROOT = _build.PACKAGE.parent
 DEPTHS = (24, 32, 48, 96, 128)
-KERNELS = ("b4", "b5", "b3", "b6", "x1")
+KERNELS = ("b4", "b5", "b3", "b6", "x1", "y1")
 # source edits for --ablate, by source: (name, [(text, replacement), ...]);
 # the edits cover this checkout's source and its parent's, and each
 # ablation must change the source it is applied to
@@ -188,12 +195,13 @@ from fusion_sim_torch.ops import fused_em as fe
 from fusion_sim_torch.ops import fused_em3d as fe3
 from fusion_sim_torch.ops import fused_pic3d as f3
 from fusion_sim_torch.ops import sorted_gather as sg
+from fusion_sim_torch.ops import tile_bucket as tb
 from fusion_sim_torch.ops.sorted_deposit import Tiling2D, Tiling3D
 torch.backends.cuda.matmul.allow_tf32 = False
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True,
                      text=True).stdout.strip()
-mods = kernel_modules = (fe, fe3, f3, sg)
+mods = kernel_modules = (fe, fe3, f3, sg, tb)
 
 
 def call(fn, **extra):
@@ -409,6 +417,36 @@ def x1_pairs(other) -> None:
                     f"of sum|a||b|")
                 del a, b, got, plain, scale, o_out
                 torch.cuda.empty_cache()
+
+
+# -- Y1 -------------------------------------------------------------------------
+
+def y1_pairs(other_dir: Path) -> None:
+    same = ((other_dir / "fusion_sim_torch/ops/fdtd.py").read_bytes()
+            == (_build.PACKAGE / "ops/fdtd.py").read_bytes())
+    has_kernel = (other_dir / "fusion_sim_torch/csrc/yee3d.cu").exists()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    shape = (128, 128, 128)
+    e, b, j = (0.01 * torch.randn((*shape, 3), generator=gen, device=dev)
+               for _ in range(3))
+    args = (e, b, j, 0.1, (0.5, 0.5, 0.5), 1.0, 1.0)
+    got, plain = y3.yee_update_3d(*args), y3.yee_update_3d_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+        raise AssertionError("Y1 differs from the plain Yee update")
+    del got, plain
+    p_ms, t_ms = in_turns(lambda: y3.yee_update_3d_plain(*args),
+                          lambda: y3.yee_update_3d(*args))
+    bound = math.prod(shape) * 5 * 12 / 3.35e12 * 1e3
+    log(f"Y1 (128^3): plain (the other checkout's Yee update: "
+        f"{'its own kernel' if has_kernel else 'no kernel'}, ops/fdtd.py "
+        f"{'the same' if same else 'another'}) {p_ms:.4f} ms, this "
+        f"{t_ms:.4f} ms ({p_ms / t_ms:.2f}x); byte bound {bound:.4f} ms "
+        f"({100 * bound / p_ms:.1f}% / {100 * bound / t_ms:.1f}%); this vs "
+        f"plain: E and B equal")
+    del e, b, j, args
+    torch.cuda.empty_cache()
 
 
 # -- B6 -------------------------------------------------------------------------
@@ -809,7 +847,8 @@ def main(argv=None) -> None:
     _build.build_all()
     stems = {"b4": "em2d_substep", "b5": "es3d_substep", "b3": "gather2d",
              "b6": "em3d_substep", "x1": "contraction_depth"}
-    sources = {f"other_{k}": other_csrc / f"{stems[k]}.cu" for k in kernels}
+    sources = {f"other_{k}": other_csrc / f"{stems[k]}.cu" for k in kernels
+               if k in stems}
     ablate_dir = _build.BUILD / "ablate"
     for k in ("b4", "b5", "b3", "b6"):
         if ns.ablate and k in kernels:
@@ -837,6 +876,8 @@ def main(argv=None) -> None:
             b3_pairs(libs["other_b3"], ablations("gather2d"), cs)
         elif k == "b6":
             b6_pairs(libs["other_b6"], ablations("em3d_substep"))
+        elif k == "y1":
+            y1_pairs(other_dir)
         else:
             x1_pairs(libs["other_x1"])
     for name in PATHS:

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .._device import device_const, resolve_device
-from ..ops import fdtd
+from ..ops import fdtd, yee3d
 from ..ops.esirkepov import esirkepov_deposit_2d, esirkepov_deposit_3d
 from ..ops.fused_em import fused_em2d_substep
 from ..ops.fused_em3d import fused_em3d_substep
@@ -137,11 +137,13 @@ def _coord_velocity(config: EMConfig, velocity: torch.Tensor) -> torch.Tensor:
 
 
 def yee_update(config: EMConfig, e, b, j):
-    dx = config.cell_size
-    b_half = fdtd.advance_b_half(b, e, config.dt, dx)
-    e_new = fdtd.advance_e_full(e, b_half, j, config.dt, dx, c=config.c,
-                                eps0=config.eps0)
-    return e_new, fdtd.advance_b_half(b_half, e_new, config.dt, dx)
+    """``(e_new, b_new)``: B half step, E full step with J, B half step.
+    3D goes through ``yee3d.yee_update_3d`` (one kernel launch on the card,
+    the rolls and differences on the CPU); 2D through those rolls."""
+    update = (yee3d.yee_update_3d if config.n_dim == 3
+              else yee3d.yee_update_3d_plain)
+    return update(e, b, j, config.dt, config.cell_size, config.c,
+                  config.eps0)
 
 
 def check_step_config(config: EMConfig) -> None:

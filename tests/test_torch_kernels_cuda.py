@@ -930,3 +930,69 @@ def test_tile_bucket_layout_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError, match="16 words"):
         build_padded_layout(pos, shape, tiling,
                             *[pos.new_zeros((1024, 3))] * 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps0", [1.0, 0.7])
+@pytest.mark.parametrize("c_light", [1.0, 2.0])
+@pytest.mark.parametrize("cell_size", [(0.5, 0.5, 0.5), (0.5, 0.25, 0.3)])
+@pytest.mark.parametrize("shape", [(128, 128, 128), (5, 7, 9), (3, 130, 17)])
+def test_yee3d_kernel_matches_plain(cuda, shape, cell_size, c_light, eps0):
+    """Built with -fmad=false and the plain version's operation order and
+    scalars: E and B bit for bit, over the periodic wrap, ragged tiles and
+    an axis shorter than the halo."""
+    from fusion_sim_torch.ops import yee3d
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    e, b, j = (torch.randn((*shape, 3), generator=gen, device=cuda)
+               for _ in range(3))
+    before = yee3d.LAUNCHES
+    got = yee3d.yee_update_3d(e, b, j, 0.1, cell_size, c_light, eps0)
+    assert yee3d.LAUNCHES == before + 1
+    plain = yee3d.yee_update_3d_plain(e, b, j, 0.1, cell_size, c_light, eps0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], plain[0]), "E"
+    assert torch.equal(got[1], plain[1]), "B"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_yee3d_kernel_word_copies_and_float_copies(cuda, offset):
+    """Z a multiple of 4 with a ragged last z tile (68 = 64 + 4), on grids
+    16-byte aligned (the tile's cells as 16-byte words) and on contiguous
+    views one float past it (every float alone): bit for bit."""
+    from fusion_sim_torch.ops import yee3d
+
+    shape = (6, 12, 68)
+    n = 6 * 12 * 68 * 3
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    e, b, j = (torch.randn(n + offset, generator=gen, device=cuda)[offset:]
+               .view(*shape, 3) for _ in range(3))
+    assert e.is_contiguous() and (e.data_ptr() % 16 != 0) == bool(offset)
+    args = (0.1, (0.5, 0.25, 0.3), 2.0, 0.7)
+    got = yee3d.yee_update_3d(e, b, j, *args)
+    plain = yee3d.yee_update_3d_plain(e, b, j, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], plain[0]), "E"
+    assert torch.equal(got[1], plain[1]), "B"
+
+
+@pytest.mark.cuda
+def test_yee3d_kernel_rejects_bad_inputs(cuda):
+    from fusion_sim_torch.ops import yee3d
+
+    e, b, j = (torch.zeros((8, 8, 8, 3), device=cuda) for _ in range(3))
+    cell = (0.5, 0.5, 0.5)
+    with pytest.raises(ValueError, match=r"\(X, Y, Z, 3\)"):
+        flat = torch.zeros((8, 8, 3), device=cuda)
+        yee3d.yee_update_3d(flat, flat, flat, 0.1, cell)
+    with pytest.raises(TypeError, match="float32"):
+        yee3d.yee_update_3d(e.double(), b.double(), j.double(), 0.1, cell)
+    with pytest.raises(ValueError, match="contiguous"):
+        yee3d.yee_update_3d(e.transpose(0, 1), b, j, 0.1, cell)
+    with pytest.raises(ValueError, match="shape"):
+        yee3d.yee_update_3d(e, b, j[:, :, :4].contiguous(), 0.1, cell)
+    with pytest.raises(ValueError, match="3 entries"):
+        yee3d.yee_update_3d(e, b, j, 0.1, (0.5, 0.5))
+    with pytest.raises(ValueError, match="is on"):
+        yee3d.yee_update_3d(e, b, j.cpu(), 0.1, cell)
