@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from ..utils.profiling import count
 from .esirkepov import (esirkepov_deposit_2d, esirkepov_deposit_3d,
                         stencil_base)
 from .interp import cic_deposit_packed
@@ -241,7 +242,9 @@ def build_padded_layout_plain(position: torch.Tensor,
                               cell_order: bool = False):
     """``build_padded_layout`` in plain PyTorch on any device: a stable
     ``torch.sort`` of the int32 (or int64) key, then one gather and one
-    zeroing ``where`` a column."""
+    zeroing ``where`` a column.  Each layout built here adds 1 to the
+    ``layouts_sorted`` counter of ``utils/profiling`` while a profiler
+    records (the bucket kernel's counter is ``layouts_bucketed``)."""
     n_tiles = math.prod(tiling.n_tiles(shape))
     p_blk = tiling.block
     n = position.shape[0]
@@ -297,6 +300,7 @@ def build_padded_layout_plain(position: torch.Tensor,
         # real rows carry even keys; invalid real rows were re-keyed to the
         # trailing tile (key = 2*n_tiles*cells); fillers carry odd keys
         out.append((keys_s % 2 == 0) & (keys_s < 2 * n_tiles * cells))
+    count("layouts_sorted", 1)
     return (*out, n_valid)
 
 

@@ -892,7 +892,7 @@ def test_tile_bucket_layout_many_tiles(cuda):
 def test_tile_bucket_layout_counts_under_a_profiler(cuda, tmp_path):
     """Each layout built through the kernel adds one to
     ``layouts_bucketed`` while a profiler records; rows by cell add
-    nothing."""
+    nothing to it, and one to ``layouts_sorted`` (the stable sort)."""
     import json
 
     from fusion_sim_torch.utils import profiling
@@ -906,6 +906,7 @@ def test_tile_bucket_layout_counts_under_a_profiler(cuda, tmp_path):
     assert profiling.counters()["layouts_bucketed"] == 2
     counts = json.loads((tmp_path / "counters.json").read_text())
     assert counts["layouts_bucketed"] == 2
+    assert counts["layouts_sorted"] == 1
 
 
 @pytest.mark.cuda

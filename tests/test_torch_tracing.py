@@ -2,8 +2,9 @@
 profiling.py``: ``span``, ``count``, ``counters``) in the two PIC shells
 that the benchmark runs, on tiny models on the CPU.
 
-Four models: the ES shell on its pallas path under resort and under
-repair, the EM shell on its fused path under resort and under repair, at
+Five models: the ES shell on its pallas path under resort and under
+repair, the EM shell on its fused 3D path under resort and under repair
+and on its fused 2D3V path under resort (rows by cell), at
 ``port_bench/tests/tiny.py``'s sizes with a one-cell sort margin and a
 hot plasma, so that rows spill from the first steps.  Each is stepped
 under ``torch.profiler`` (CPU activity) beside an untraced twin built
@@ -34,6 +35,7 @@ MODELS = {
     "es_repair": ("es2d-512sq-10m.thermal-resort", "repair", 1.0, None),
     "em_resort": ("em3d-128cube-30m.thermal-resort", "resort", 1.0, 128),
     "em_repair": ("em3d-128cube-30m.thermal-repair", "repair", 1.0, None),
+    "em2d_resort": ("em2d3v-512sq-10m.weibel-resort", "resort", 1.0, 128),
 }
 
 
@@ -135,6 +137,28 @@ def test_rows_patched_is_the_state_delta(recording):
     assert recording["counts"]["rows_patched"] == patched
     if not recording["repair"]:
         assert s1.spill_dropped > s0.spill_dropped   # min(spill, capacity)
+
+
+def test_layouts_sorted_counts_each_layout(recording):
+    """On the CPU every layout takes the stable sort: one count a resort
+    of the recording (the build came before it)."""
+    assert recording["counts"].get("layouts_sorted", 0) == recording["due"]
+    assert "layouts_bucketed" not in recording["counts"]
+
+
+def test_layouts_sorted_adds_no_host_read():
+    """Two twins of the 2D3V shell (rows by cell) from one build, a call
+    at a time, the first under a recording: a resort every 2 calls counts
+    one layout in each call that opens with it, and both twins read the
+    same scalars."""
+    traced, plain = _build("em2d_resort"), _build("em2d_resort")
+    traced.resort_every = plain.resort_every = 2
+    for call in range(1, 6):
+        with profile(activities=[ProfilerActivity.CPU]):
+            a = _scalar_reads(lambda: traced.step(1))
+            counts = profiling.counters()
+        assert a == _scalar_reads(lambda: plain.step(1))
+        assert counts.get("layouts_sorted", 0) == (call in (3, 5)), call
 
 
 def test_traced_state_is_bit_identical(recording):
