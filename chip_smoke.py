@@ -96,11 +96,14 @@ Phases 4-11 build their sims through the port's bench and example builders
 8. 3D EM main path — ``SortedElectromagneticPIC(gather_backend='fused')``
                with a 3D config at the same size (cell 0.5, dt 0.1, charge
                -0.01, mass 0.01, centered gather, the same tiling, resort
-               every 6): one warm window, three timed windows; B6 launches,
-               the bucket resort's (3 a resort; also in phase 4), drops,
-               validity, finiteness and Gauss's law checked, B6
-               timed against its plain version and its bound on the path's
-               own inputs, one profiled window;
+               every 6): one warm window, three timed windows; B6, Y1 and
+               T1 launches (one a step each), the bucket resort's (3 a
+               resort; also in phase 4), drops, validity, finiteness and
+               Gauss's law checked, B6 timed against its plain version and
+               its bound on the path's own inputs, T1 (the node table) and
+               Y1 (the Yee update) held bit for bit against their plain
+               versions on the path's fields and timed beside them and
+               their byte bounds, one profiled window;
 8b. resort   — the bucket resort (``csrc/tile_bucket.cu``) on the state of
                each resort cell of ``port_bench`` after a window (ES 2D
                9,999,360 particles on 512^2, tile 32, block 1024; EM 3D
@@ -1287,6 +1290,13 @@ def em3d_bound_ms(n_rows: int, n_valid: int, shape, block: int):
     return (*bound(bytes_moved, 700 * n_valid), bytes_moved)
 
 
+def node_table3d_bound_ms(shape):
+    """Least time for one 3D node table: E and B read once and the table
+    written once (48 B a node), against 24 f32 operations a node."""
+    cells = math.prod(shape)
+    return (*bound(cells * 48, cells * 24), cells * 48)
+
+
 def yee3d_bound_ms(shape):
     """Least time for one 3D Yee update: E, B and J read once and E and B
     written once (60 B a cell), against 54 f32 operations a cell."""
@@ -1555,7 +1565,7 @@ def phase7_es3d_main(torch, es, f3, smi, kernel_modules):
 
 def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
     from fusion_sim_torch.examples import bench_3d as b3d
-    from fusion_sim_torch.ops import fdtd
+    from fusion_sim_torch.ops import node_table3d as nt
     from fusion_sim_torch.ops import yee3d as y3
 
     n, resort, windows = b3d.N, b3d.RESORT, 3
@@ -1576,14 +1586,15 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
                    f"{time.perf_counter() - t0:.3f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    zero_counts((*kernel_modules, y3))
+    zero_counts((*kernel_modules, y3, nt))
     rates = run_windows(torch, sim, windows, resort)
     launches = fe3.LAUNCHES
     steps = windows * resort
-    if launches != steps or y3.LAUNCHES != steps:
+    if launches != steps or y3.LAUNCHES != steps or nt.LAUNCHES != steps:
         raise AssertionError(f"B6 launches {launches}, Y1 launches "
-                             f"{y3.LAUNCHES} != steps {steps}")
-    y_launches = y3.LAUNCHES
+                             f"{y3.LAUNCHES}, T1 launches {nt.LAUNCHES} != "
+                             f"steps {steps}")
+    y_launches, t_launches = y3.LAUNCHES, nt.LAUNCHES
     resorted = resort_launches(kernel_modules, windows, "8 EM 3D")
     st = sim.state
     check_em_state(torch, st, n)
@@ -1604,8 +1615,12 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # kernel vs plain and bound, on the main path's own inputs
-    table = fdtd.center_fields(st.e, st.b, fdtd.E_OFFSETS_3D,
-                               fdtd.B_OFFSETS_3D)
+    table = nt.node_table_3d(st.e, st.b)
+    plain_table = nt.node_table_3d_plain(st.e, st.b)
+    torch.cuda.synchronize()
+    if not torch.equal(table, plain_table):
+        raise AssertionError("T1 differs from the plain node table")
+    del plain_table
     args = em_substep_args(cfg, tiling, table, st)
     err, report = compare_fused(
         torch, "B6", fe3.fused_em3d_substep(*args),
@@ -1619,8 +1634,15 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
                    f"{report}; kernel {k_ms:.4f} ms "
                    f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective), "
                    f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    c_ms = median_ms(torch, lambda: fdtd.center_fields(
-        st.e, st.b, fdtd.E_OFFSETS_3D, fdtd.B_OFFSETS_3D))
+    c_ms = median_ms(torch, lambda: nt.node_table_3d_plain(st.e, st.b))
+    t_ms = median_ms(torch, lambda: nt.node_table_3d(st.e, st.b))
+    tb_ms, tb_by, tb_bytes = node_table3d_bound_ms(cfg.grid_shape)
+    log("8 EM 3D", f"T1 node_table3d (128^3): the table equals the plain "
+                   f"version's; kernel {t_ms:.4f} ms "
+                   f"({tb_bytes / (t_ms * 1e-3) / 1e9:.1f} GB/s effective, "
+                   f"{100 * tb_ms / t_ms:.1f}% of its bound), plain "
+                   f"(center_fields) {c_ms:.4f} ms, bound {tb_ms:.4f} ms "
+                   f"({tb_by})")
     # Y1 on the main path's fields and the J of its last step's deposit
     j = fe3.fused_em3d_substep(*args)[2]
     yee = (st.e, st.b, j, cfg.dt, cfg.cell_size, cfg.c, cfg.eps0)
@@ -1632,7 +1654,7 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
     y_ms = median_ms(torch, lambda: y3.yee_update_3d(*yee))
     yp_ms = median_ms(torch, lambda: y3.yee_update_3d_plain(*yee))
     yb_ms, yb_by, yb_bytes = yee3d_bound_ms(cfg.grid_shape)
-    log("8 EM 3D", f"center_fields {c_ms:.4f} ms; Y1 yee3d (128^3): E and B "
+    log("8 EM 3D", f"Y1 yee3d (128^3): E and B "
                    f"equal the plain version's; kernel {y_ms:.4f} ms "
                    f"({yb_bytes / (y_ms * 1e-3) / 1e9:.1f} GB/s effective, "
                    f"{100 * yb_ms / y_ms:.1f}% of its bound), plain "
@@ -1648,6 +1670,14 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
         "plain_ms": yp_ms, "bound_ms": yb_ms, "bound_by": yb_by,
         "library_ms": None,
     }
+    t1 = {
+        "name": "T1:node_table3d", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/node_table3d.cu",
+        "replaces": "none: the reference's center_fields is XLA",
+        "launches": t_launches, "max_abs_err": 0.0, "ms": t_ms,
+        "plain_ms": c_ms, "bound_ms": tb_ms, "bound_by": tb_by,
+        "library_ms": None,
+    }
     return {
         "name": "B6:em3d_substep", "route": "cuda",
         "source": "fusion_sim_torch/csrc/em3d_substep.cu",
@@ -1655,7 +1685,7 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }, y1, resorted
+    }, y1, t1, resorted
 
 
 # -- 8b. the bucket resort on each resort cell's state ------------------------
@@ -3765,8 +3795,8 @@ def main() -> None:
     b5 = phase7_es3d_main(torch, es, f3, smi, kernel_modules)
     torch.cuda.empty_cache()
     log("7 ES 3D", f"done at {time.perf_counter() - t_start:.1f} s")
-    b6, y1, em_resorted = phase8_em3d_main(torch, em, fe3, smi,
-                                           kernel_modules)
+    b6, y1, t1, em_resorted = phase8_em3d_main(torch, em, fe3, smi,
+                                               kernel_modules)
     torch.cuda.empty_cache()
     log("8 EM 3D", f"done at {time.perf_counter() - t_start:.1f} s")
     resorts = phase8b_resort(torch, smi, {"ES 2D 10M": es_resorted,
@@ -3820,7 +3850,8 @@ def main() -> None:
         if not entry["launches"]:
             raise AssertionError(f"no launch of {entry['name']}")
     print(json.dumps({"kernels": [b1, *b1_ablations, b2, *b3, b4, b3_em, b5,
-                                  b6, y1, *resorts, x1, *sharded, *dry]}),
+                                  b6, y1, t1, *resorts, x1, *sharded,
+                                  *dry]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

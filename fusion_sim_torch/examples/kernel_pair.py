@@ -2,8 +2,9 @@
 with the main paths of both.
 
     python -m fusion_sim_torch.examples.kernel_pair --other DIR \\
-        [--kernels b4,b5,b3,b6,x1,y1] [--ablate] [--em2d-path] [--es3d-path] \\
-        [--em3d-path] [--pusher-path] [--em-pallas-path] [--resort-path]
+        [--kernels b4,b5,b3,b6,x1,y1,t1] [--ablate] [--em2d-path] \\
+        [--es3d-path] [--em3d-path] [--pusher-path] [--em-pallas-path] \\
+        [--resort-path]
 
 ``DIR`` holds another commit's ``fusion_sim_torch/`` and ``chip_smoke.py``:
 for example the parent commit, unpacked with ``git archive <commit>
@@ -51,6 +52,12 @@ wrapper's host work is in neither time:
   no ``csrc/yee3d.cu`` and the same ``ops/fdtd.py``, against this
   checkout's kernel, held bit for bit, beside its byte bound (60 B a
   cell);
+* T1 (``node_table3d``) at 128^3 (seeded E and B of scale 0.01): the
+  plain node table (``ops/fdtd.center_fields`` with the 3D offsets), which
+  is what the other checkout's 3D shells build where it has no
+  ``csrc/node_table3d.cu`` and the same ``ops/fdtd.py``, against this
+  checkout's kernel, held bit for bit, beside its byte bound (48 B a
+  node);
 * ``--ablate``: B4, B5 and B6 of both checkouts rebuilt with their
   corner reads replaced by constants ("no gather") and with their deposit
   switched off ("no deposit"), B4 of both also with its J flush switched
@@ -95,13 +102,14 @@ from ..ops import contraction_depth as cd
 from ..ops import fused_em as fe
 from ..ops import fused_em3d as fe3
 from ..ops import fused_pic3d as f3
+from ..ops import node_table3d as nt
 from ..ops import sorted_gather as sg
 from ..ops import yee3d as y3
 from ..ops.sorted_deposit import Tiling3D, build_padded_layout
 
 ROOT = _build.PACKAGE.parent
 DEPTHS = (24, 32, 48, 96, 128)
-KERNELS = ("b4", "b5", "b3", "b6", "x1", "y1")
+KERNELS = ("b4", "b5", "b3", "b6", "x1", "y1", "t1")
 # source edits for --ablate, by source: (name, [(text, replacement), ...]);
 # the edits cover this checkout's source and its parent's, and each
 # ablation must change the source it is applied to
@@ -446,6 +454,36 @@ def y1_pairs(other_dir: Path) -> None:
         f"({100 * bound / p_ms:.1f}% / {100 * bound / t_ms:.1f}%); this vs "
         f"plain: E and B equal")
     del e, b, j, args
+    torch.cuda.empty_cache()
+
+
+# -- T1 -------------------------------------------------------------------------
+
+def t1_pairs(other_dir: Path) -> None:
+    same = ((other_dir / "fusion_sim_torch/ops/fdtd.py").read_bytes()
+            == (_build.PACKAGE / "ops/fdtd.py").read_bytes())
+    has_kernel = (other_dir
+                  / "fusion_sim_torch/csrc/node_table3d.cu").exists()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    shape = (128, 128, 128)
+    e, b = (0.01 * torch.randn((*shape, 3), generator=gen, device=dev)
+            for _ in range(2))
+    got, plain = nt.node_table_3d(e, b), nt.node_table_3d_plain(e, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain):
+        raise AssertionError("T1 differs from the plain node table")
+    del got, plain
+    p_ms, t_ms = in_turns(lambda: nt.node_table_3d_plain(e, b),
+                          lambda: nt.node_table_3d(e, b))
+    bound = math.prod(shape) * 48 / 3.35e12 * 1e3
+    log(f"T1 (128^3): plain (the other checkout's node table: "
+        f"{'its own kernel' if has_kernel else 'no kernel'}, ops/fdtd.py "
+        f"{'the same' if same else 'another'}) {p_ms:.4f} ms, this "
+        f"{t_ms:.4f} ms ({p_ms / t_ms:.2f}x); byte bound {bound:.4f} ms "
+        f"({100 * bound / p_ms:.1f}% / {100 * bound / t_ms:.1f}%); this vs "
+        f"plain: the table equal")
+    del e, b
     torch.cuda.empty_cache()
 
 
@@ -878,6 +916,8 @@ def main(argv=None) -> None:
             b6_pairs(libs["other_b6"], ablations("em3d_substep"))
         elif k == "y1":
             y1_pairs(other_dir)
+        elif k == "t1":
+            t1_pairs(other_dir)
         else:
             x1_pairs(libs["other_x1"])
     for name in PATHS:

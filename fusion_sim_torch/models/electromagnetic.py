@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .._device import device_const, resolve_device
-from ..ops import fdtd, yee3d
+from ..ops import fdtd, node_table3d, yee3d
 from ..ops.esirkepov import esirkepov_deposit_2d, esirkepov_deposit_3d
 from ..ops.fused_em import fused_em2d_substep
 from ..ops.fused_em3d import fused_em3d_substep
@@ -156,12 +156,21 @@ def check_step_config(config: EMConfig) -> None:
                          f"(staggered|centered)")
 
 
+def node_table(config: EMConfig, e, b):
+    """The node-centered (*grid, 6) E|B table.  3D goes through
+    ``node_table3d.node_table_3d`` (one kernel launch on the card,
+    ``center_fields`` on the CPU); 2D through ``center_fields``' rolls."""
+    if config.n_dim == 3:
+        return node_table3d.node_table_3d(e, b)
+    return fdtd.center_fields(e, b, *_offsets(config))
+
+
 def field_table(config: EMConfig, e, b):
-    """The node-centered (*grid, 6) E|B table of ``'centered'`` gathers,
-    or None for ``'staggered'`` (the exact Yee-point gathers)."""
+    """``node_table`` for ``'centered'`` gathers, or None for
+    ``'staggered'`` (the exact Yee-point gathers)."""
     if config.field_gather != "centered":
         return None
-    return fdtd.center_fields(e, b, *_offsets(config))
+    return node_table(config, e, b)
 
 
 def push_and_deposit(config: EMConfig, e_field, b_field, position, velocity,
@@ -479,7 +488,7 @@ class SortedElectromagneticPIC(SortedShell):
         shape = config.grid_shape
         qm_half_dt, dxv, grid_f = self._consts
         with span("fields"):
-            table = fdtd.center_fields(state.e, state.b, *_offsets(config))
+            table = node_table(config, state.e, state.b)
         substep = (fused_em2d_substep if config.n_dim == 2
                    else fused_em3d_substep)
         with span("kernel"):
@@ -521,7 +530,7 @@ class SortedElectromagneticPIC(SortedShell):
         qm_half_dt, dxv, grid_f = self._consts
         ndim = config.n_dim
         with span("fields"):
-            table = fdtd.center_fields(state.e, state.b, *_offsets(config))
+            table = node_table(config, state.e, state.b)
         with span("kernel"):
             if self.gather_backend == "pallas" and ndim == 2:
                 eb, g_inw = gather_sorted_2d_window(

@@ -6,6 +6,8 @@ only PyTorch is installed:
 
 Without a CUDA card every test here skips (a kernel has no CPU mode)."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -997,3 +999,112 @@ def test_yee3d_kernel_rejects_bad_inputs(cuda):
         yee3d.yee_update_3d(e, b, j, 0.1, (0.5, 0.5))
     with pytest.raises(ValueError, match="is on"):
         yee3d.yee_update_3d(e, b, j.cpu(), 0.1, cell)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 128, 128), (5, 7, 9), (3, 13, 17),
+                                   (8, 6, 10), (4, 4, 4), (3, 130, 17)])
+def test_node_table3d_kernel_matches_plain(cuda, shape):
+    """Built with -fmad=false and center_fields' averages axis by axis:
+    the table bit for bit, over the periodic wrap, ragged tiles and axes
+    shorter than the tile."""
+    from fusion_sim_torch.ops import node_table3d
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    e, b = (torch.randn((*shape, 3), generator=gen, device=cuda)
+            for _ in range(2))
+    before = node_table3d.LAUNCHES
+    got = node_table3d.node_table_3d(e, b)
+    assert node_table3d.LAUNCHES == before + 1
+    assert got.shape == (*shape, 6) and got.is_contiguous()
+    plain = node_table3d.node_table_3d_plain(e, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((6, 12, 68), 0), ((6, 12, 68), 1),
+                                          ((6, 12, 66), 0)])
+def test_node_table3d_kernel_word_copies_and_float_copies(cuda, shape,
+                                                          offset):
+    """Z a multiple of 4 with a ragged last z tile (68 = 64 + 4), on grids
+    16-byte aligned (the tile's cells as 16-byte words, in and out) and on
+    contiguous views one float past it, and Z even but not a multiple of 4
+    (every float alone): bit for bit."""
+    from fusion_sim_torch.ops import node_table3d
+
+    n = math.prod(shape) * 3
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    e, b = (torch.randn(n + offset, generator=gen, device=cuda)[offset:]
+            .view(*shape, 3) for _ in range(2))
+    assert e.is_contiguous() and (e.data_ptr() % 16 != 0) == bool(offset)
+    got = node_table3d.node_table_3d(e, b)
+    plain = node_table3d.node_table_3d_plain(e, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_node_table3d_kernel_rejects_bad_inputs(cuda):
+    from fusion_sim_torch.ops import node_table3d
+
+    e, b = (torch.zeros((8, 8, 8, 3), device=cuda) for _ in range(2))
+    before = node_table3d.LAUNCHES
+    with pytest.raises(ValueError, match=r"\(X, Y, Z, 3\)"):
+        flat = torch.zeros((8, 8, 3), device=cuda)
+        node_table3d.node_table_3d(flat, flat)
+    with pytest.raises(TypeError, match="float32"):
+        node_table3d.node_table_3d(e.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        node_table3d.node_table_3d(e.transpose(0, 1), b)
+    with pytest.raises(ValueError, match="shape"):
+        node_table3d.node_table_3d(e, b[:, :, :4].contiguous())
+    with pytest.raises(ValueError, match="is on"):
+        node_table3d.node_table_3d(e, b.cpu())
+    assert node_table3d.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_em3d_fused_step_on_the_node_table_kernel_is_the_plain_step(
+        cuda, monkeypatch):
+    """One step of the fused 3D shell through T1 and through the plain
+    table: every tensor of the state bit for bit.  One particle a 4^3 block
+    of cells, slow, so no grid cell takes two deposits and J has no
+    atomic summation order."""
+    from fusion_sim_torch.models import electromagnetic as em
+    from fusion_sim_torch.ops import node_table3d
+    from fusion_sim_torch.ops.sorted_deposit import Tiling3D
+
+    cells = 32
+    g = np.arange(0, cells, 4) + 1.5
+    lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    rng = np.random.default_rng(9)
+    pos = (lattice + rng.uniform(-0.3, 0.3, lattice.shape)).astype(np.float32)
+    vel = (0.05 * rng.standard_normal(lattice.shape)).astype(np.float32)
+    e0, b0 = ((0.01 * rng.standard_normal((cells,) * 3 + (3,))).astype(
+        np.float32) for _ in range(2))
+    cfg = em.EMConfig(grid_shape=(cells,) * 3, cell_size=(0.5,) * 3, dt=0.1,
+                      charge=-0.01, mass=0.01, field_gather="centered")
+
+    def step():
+        sim = em.SortedElectromagneticPIC(
+            cfg, pos, vel, e=e0, b=b0, tiling=Tiling3D((8, 8, 8), 128, 2),
+            resort_every=6, gather_backend="fused", device=cuda)
+        before = node_table3d.LAUNCHES
+        sim.step(1)
+        torch.cuda.synchronize()
+        return sim.state, node_table3d.LAUNCHES - before
+
+    fast, launches = step()
+    assert launches == 1
+    monkeypatch.setattr(node_table3d, "node_table_3d",
+                        node_table3d.node_table_3d_plain)
+    plain, launches = step()
+    assert launches == 0
+    assert not torch.equal(fast.e.cpu(), torch.from_numpy(e0)), "E moved"
+    for key, x in fast._asdict().items():
+        y = getattr(plain, key)
+        if torch.is_tensor(x):
+            assert torch.equal(_bits(x), _bits(y)), key
+        else:
+            assert x == y, key
