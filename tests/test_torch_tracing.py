@@ -2,9 +2,11 @@
 profiling.py``: ``span``, ``count``, ``counters``) in the two PIC shells
 that the benchmark runs, on tiny models on the CPU.
 
-Five models: the ES shell on its pallas path under resort and under
+Six models: the ES shell on its pallas path under resort and under
 repair, the EM shell on its fused 3D path under resort and under repair
-and on its fused 2D3V path under resort (rows by cell), at
+and on its fused 2D3V path under resort (rows by cell), and the 3D ES
+shell on its pallas path under resort (kernel B5's plain version, rows
+by cell), at
 ``port_bench/tests/tiny.py``'s sizes with a one-cell sort margin and a
 hot plasma, so that rows spill from the first steps.  Each is stepped
 under ``torch.profiler`` (CPU activity) beside an untraced twin built
@@ -36,6 +38,7 @@ MODELS = {
     "em_resort": ("em3d-128cube-30m.thermal-resort", "resort", 1.0, 128),
     "em_repair": ("em3d-128cube-30m.thermal-repair", "repair", 1.0, None),
     "em2d_resort": ("em2d3v-512sq-10m.weibel-resort", "resort", 1.0, 128),
+    "es3d_resort": ("es3d-128cube-30m.thermal-resort", "resort", 1.0, 128),
 }
 
 
