@@ -109,10 +109,15 @@ Phases 4-11 build their sims through the port's bench and example builders
                9,999,360 particles on 512^2, tile 32, block 1024; EM 3D
                29,997,056 and 419,958,784 on 128^3, tile 8^3, block 512;
                the state laid out by tile and drifted as a window drifts
-               it): held bit for bit against the sort
+               it), and rows by cell, the bucket resort and its cell pass,
+               on the ES 3D cell's (29,997,056, 128^3, tile 8^3) and the
+               2D3V cell's (10,002,432, 512^2, tile 32, velocity (N, 3))
+               states laid out by cell: held bit for bit against the sort
                (``build_padded_layout_plain``), then both timed beside the
                resort's byte bound (a row read and written once) and the
-               two-pass design's floor (the count reads it once more);
+               design's floor (the count reads it once more; by cell, the
+               pass reads the position a third time and moves each row's
+               words once more), the cell pass alone from a profiler;
                the launches reported are the main path's (phases 4, 8);
 9. X1        — the contraction-depth experiment's default sweep at full
                size (S = 305, G = 32, m = 96, p = 1024; both orders, both
@@ -308,14 +313,15 @@ def zero_counts(kernel_modules) -> None:
         getattr(mod, "FORM_LAUNCHES", {}).clear()
 
 
-def resort_launches(kernel_modules, resorts: int, where: str) -> int:
+def resort_launches(kernel_modules, resorts: int, where: str,
+                    per: int = 3) -> int:
     """The bucket resort's launches since ``zero_counts``: three a resort on
-    a main path with rows by tile."""
+    a main path with rows by tile, four by cell (``per``)."""
     tb = next(m for m in kernel_modules
               if m.__name__.endswith(".tile_bucket"))
-    if tb.LAUNCHES != 3 * resorts:
+    if tb.LAUNCHES != per * resorts:
         raise AssertionError(f"{where}: bucket resort launches "
-                             f"{tb.LAUNCHES} != 3 x {resorts} resorts")
+                             f"{tb.LAUNCHES} != {per} x {resorts} resorts")
     return tb.LAUNCHES
 
 
@@ -1133,6 +1139,8 @@ def phase6_em_main(torch, em, fe, smi, kernel_modules):
     steps = 2 * resort
     if launches != steps:
         raise AssertionError(f"B4 launches {launches} != steps {steps}")
+    resorted = resort_launches(kernel_modules, 2, "6 EM",
+                               per=4)   # rows by cell
     st = sim.state
     check_em_state(torch, st, n)
     r1 = sorted_gauss_residual(torch, em, sim)
@@ -1179,7 +1187,7 @@ def phase6_em_main(torch, em, fe, smi, kernel_modules):
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }, rate
+    }, rate, resorted
 
 
 def phase6b_em_pallas(torch, sg, smi, kernel_modules, n: int = 1 << 20):
@@ -1484,6 +1492,8 @@ def phase7_es3d_main(torch, es, f3, smi, kernel_modules):
     steps = windows * resort
     if launches != steps:
         raise AssertionError(f"B5 launches {launches} != steps {steps}")
+    resorted = resort_launches(kernel_modules, windows, "7 ES 3D",
+                               per=4)  # by cell
     st = sim.state
     if st.spill_dropped != 0:
         raise AssertionError(f"{st.spill_dropped} spilled rows dropped")
@@ -1560,7 +1570,7 @@ def phase7_es3d_main(torch, es, f3, smi, kernel_modules):
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }
+    }, resorted
 
 
 def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
@@ -1691,35 +1701,61 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
 # -- 8b. the bucket resort on each resort cell's state ------------------------
 
 # label, particles, grid, tile, block, margin, velocity components, drift in
-# cells over a window (ES: 0.2 a step for 12 steps; EM: 0.01 for 6)
+# cells over a window (ES: 0.2 a step for 12 steps; EM: 0.01 for 6; ES 3D:
+# 0.051 for 6; 2D3V: 0.04 for 12), rows by cell
 RESORT_CELLS = (
-    ("ES 2D 10M", 9_999_360, (512, 512), (32, 32), 1024, 6, 2, 2.4),
-    ("EM 3D 30M", 29_997_056, (128,) * 3, (8, 8, 8), 512, 2, 3, 0.06),
-    ("EM 3D 420M", 419_958_784, (128,) * 3, (8, 8, 8), 512, 2, 3, 0.06),
+    ("ES 2D 10M", 9_999_360, (512, 512), (32, 32), 1024, 6, 2, 2.4, False),
+    ("EM 3D 30M", 29_997_056, (128,) * 3, (8, 8, 8), 512, 2, 3, 0.06, False),
+    ("EM 3D 420M", 419_958_784, (128,) * 3, (8, 8, 8), 512, 2, 3, 0.06,
+     False),
+    ("ES 3D 30M by cell", 29_997_056, (128,) * 3, (8, 8, 8), 512, 2, 3,
+     0.306, True),
+    ("2D3V 10M by cell", 10_002_432, (512, 512), (32, 32), 1024, 6, 3, 0.48,
+     True),
 )
 
 
 def resort_bound_ms(rows: int, fillers: int, dims: int, vdim: int,
-                    n_keys: int, n_chunks: int):
+                    n_keys: int, n_chunks: int, cell_order: bool = False):
     """(ms, 'bytes', bytes, floor_ms): the resort's least time.  A row is
     read once (position, velocity, valid) and written once (with tile_id,
     4 B, and valid, 1 B), a filler row is written, and the int32 count
     matrix is written, scanned (read and written) and read once.
-    ``floor_ms`` is this two-pass design's floor: the count pass reads each
-    row's position and valid again."""
+    ``floor_ms`` is this design's floor: the count pass reads each row's
+    position and valid again; by cell the cell pass reads the position a
+    third time and reads and writes the row's words once more."""
     row = 4 * (dims + vdim)
     moved = (rows * ((row + 1) + (row + 5)) + fillers * (row + 5)
              + 4 * 4 * n_keys * (n_chunks + 1))
     ms, by = bound(moved, 0)
-    floor_ms, _ = bound(moved + rows * (4 * dims + 1), 0)
+    extra = rows * (4 * dims + 1)
+    if cell_order:
+        extra += rows * (4 * dims + 2 * row)
+    floor_ms, _ = bound(moved + extra, 0)
     return ms, by, moved, floor_ms
+
+
+def kernel_device_ms(torch, fn, pattern: str, reps: int = 5):
+    """Mean device ms a call of the kernels whose name holds ``pattern``,
+    from a profiler over ``reps`` calls (None where it records no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0)
+                for e in prof.key_averages() if pattern in e.key)
+    return total / 1e3 / reps if total > 0 else None
 
 
 def phase8b_resort(torch, smi, main_launches):
     """The bucket resort against the sort on each resort cell's state after
     a window; returns the kernel entries, whose launches are those counted
-    on the cell's main path (``main_launches``, by label: phases 4 and 8)
-    or, where chip_smoke drives none, those of this phase."""
+    on the cell's main path (``main_launches``, by label: phases 4, 6, 7
+    and 8) or, where chip_smoke drives none, those of this phase."""
     from fusion_sim_torch.ops import tile_bucket as tb
     from fusion_sim_torch.ops.sorted_deposit import (
         Tiling2D, Tiling3D, build_padded_layout, build_padded_layout_plain)
@@ -1729,7 +1765,8 @@ def phase8b_resort(torch, smi, main_launches):
 
     dev = torch.device("cuda")
     entries = []
-    for label, n, shape, tile, block, margin, vdim, drift in RESORT_CELLS:
+    for label, n, shape, tile, block, margin, vdim, drift, cell_order \
+            in RESORT_CELLS:
         dims = len(shape)
         tiling = (Tiling2D(*tile, block, margin=margin) if dims == 2
                   else Tiling3D(tile, block, margin=margin))
@@ -1738,20 +1775,21 @@ def phase8b_resort(torch, smi, main_launches):
         ext = torch.tensor(shape, dtype=torch.float32, device=dev)
         pos = torch.rand((n, dims), generator=gen, device=dev) * ext
         vel = torch.randn((n, vdim), generator=gen, device=dev)
-        _, pos, vel, valid, _ = build_padded_layout(pos, shape, tiling, vel,
-                                                    derive_valid=True)
+        _, pos, vel, valid, _ = build_padded_layout(
+            pos, shape, tiling, vel, derive_valid=True, cell_order=cell_order)
         pos = torch.remainder(pos + drift * vel[:, :dims], ext)
         rows = pos.shape[0]
         torch.cuda.synchronize()
 
         def layout(build):
             return lambda: build(pos, shape, tiling, vel, valid=valid,
-                                 derive_valid=True)
+                                 derive_valid=True, cell_order=cell_order)
         tb.LAUNCHES = 0
         got = layout(build_padded_layout)()
-        if tb.LAUNCHES != 3:
+        if tb.LAUNCHES != 3 + cell_order:
             raise AssertionError(f"{label}: the resort did not launch the "
-                                 f"bucket kernel")
+                                 f"bucket kernel" + (" and its cell pass"
+                                                     if cell_order else ""))
         want = layout(build_padded_layout_plain)()
         err = 0.0
         for i, (a, b) in enumerate(zip(got, want)):
@@ -1766,19 +1804,27 @@ def phase8b_resort(torch, smi, main_launches):
         torch.cuda.empty_cache()
         k_ms = median_ms(torch, layout(build_padded_layout), reps=10)
         here = tb.LAUNCHES
+        pass_ms = (kernel_device_ms(torch, layout(build_padded_layout),
+                                    "cells_kernel") if cell_order else None)
         p_ms = median_ms(torch, layout(build_padded_layout_plain), reps=3,
                          warm=1)
         _, n_chunks = tb.chunking(rows, n_tiles + 1)
         b_ms, b_by, b_bytes, floor_ms = resort_bound_ms(
-            rows, n_tiles * block, dims, vdim, n_tiles + 1, n_chunks)
+            rows, n_tiles * block, dims, vdim, n_tiles + 1, n_chunks,
+            cell_order)
         rate = b_bytes / (k_ms * 1e-3) / 1e9
         launches = main_launches.get(label, here)
+        by_cell = ""
+        if cell_order:
+            by_cell = (f"; the cell pass alone "
+                       + ("not measured (no device time recorded)"
+                          if pass_ms is None else f"{pass_ms:.4f} ms"))
         log("8b resort", f"{smi}: {label}, {rows} rows (drift {drift} "
                          f"cells): bit for bit against the sort (max abs "
                          f"err {err}); bucket kernel {k_ms:.4f} ms "
                          f"({rate:.1f} GB/s effective), sort {p_ms:.4f} ms, "
-                         f"bound {b_ms:.4f} ms ({b_by}; the two-pass "
-                         f"design's floor {floor_ms:.4f} ms); launches "
+                         f"bound {b_ms:.4f} ms ({b_by}; the design's floor "
+                         f"{floor_ms:.4f} ms){by_cell}; launches "
                          f"{here} here"
                          + (f", {launches} on the main path"
                             if label in main_launches else ""))
@@ -3783,8 +3829,8 @@ def main() -> None:
     log("5b pallas", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 6. the EM main path at full size, 6b. its pallas route -----------------
-    b4, em_resort_rate = phase6_em_main(torch, em, fe, smi,
-                                        kernel_modules)
+    b4, em_resort_rate, em2d_resorted = phase6_em_main(torch, em, fe, smi,
+                                                       kernel_modules)
     torch.cuda.empty_cache()
     log("6 EM", f"done at {time.perf_counter() - t_start:.1f} s")
     b3_em = phase6b_em_pallas(torch, sg, smi, kernel_modules)
@@ -3792,15 +3838,17 @@ def main() -> None:
     log("6b EM pallas", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 7. the 3D ES main path, 8. the 3D EM main path, at full size ----------
-    b5 = phase7_es3d_main(torch, es, f3, smi, kernel_modules)
+    b5, es3d_resorted = phase7_es3d_main(torch, es, f3, smi,
+                                         kernel_modules)
     torch.cuda.empty_cache()
     log("7 ES 3D", f"done at {time.perf_counter() - t_start:.1f} s")
     b6, y1, t1, em_resorted = phase8_em3d_main(torch, em, fe3, smi,
                                                kernel_modules)
     torch.cuda.empty_cache()
     log("8 EM 3D", f"done at {time.perf_counter() - t_start:.1f} s")
-    resorts = phase8b_resort(torch, smi, {"ES 2D 10M": es_resorted,
-                                          "EM 3D 30M": em_resorted})
+    resorts = phase8b_resort(torch, smi, {
+        "ES 2D 10M": es_resorted, "EM 3D 30M": em_resorted,
+        "ES 3D 30M by cell": es3d_resorted, "2D3V 10M by cell": em2d_resorted})
     torch.cuda.empty_cache()
     log("8b resort", f"done at {time.perf_counter() - t_start:.1f} s")
 

@@ -14,13 +14,14 @@ resort sees):
   fit (``ops/sorted_deposit.tile_cell_keys``);
 * the port's own resort, ``build_padded_layout``, on the state of a built
   layout after a drift of ~0.2 cells (what a cadence resort sees), both
-  ways on the same input: rows by tile on the card through the bucket
-  kernel (``ops/tile_bucket.py``) and through the stable sort
-  (``build_padded_layout_plain``), checked row for row (``--dim 2``:
-  512^2, ``Tiling2D(32, 32, 1024, margin 6)``, velocity (N, 2), the ES 2D
+  ways on the same input: on the card through the bucket kernel
+  (``ops/tile_bucket.py``) and through the stable sort
+  (``build_padded_layout_plain``), checked row for row, by tile and by
+  cell (the bucket kernel and its cell pass) (``--dim 2``: 512^2,
+  ``Tiling2D(32, 32, 1024, margin 6)``, velocity (N, 2), the ES 2D
   shell's; ``--dim 3``: 128^3, ``Tiling3D((8, 8, 8), 512, margin 2)``,
-  velocity (N, 3), the EM 3D shell's, and rows by cell, the ES 3D
-  shell's, which keeps the sort).
+  velocity (N, 3), the EM 3D shell's by tile and the ES 3D shell's by
+  cell).
 
     python -m fusion_sim_torch.examples.bench_resort --n 12582912 \\
         --payloads 6
@@ -107,22 +108,22 @@ def main(argv=None) -> dict:
         return lambda: build(pos, shape, tiling, vel, valid=valid,
                              derive_valid=True, cell_order=cell_order)
 
-    got = layout(build_padded_layout)()
-    want = layout(build_padded_layout_plain)()
-    same = all(torch.equal(a, b) for a, b in zip(got, want))
-    del got, want
-    t_bucket = ms(layout(build_padded_layout))
-    t_sort = ms(layout(build_padded_layout_plain))
-    print(f"build_padded_layout ({args.dim}D, rows by tile, velocity "
-          f"(N, {args.dim})) : bucket kernel {t_bucket:7.3f} ms"
-          f"{' (on the CPU: the sort)' if dev.type == 'cpu' else ''}, "
-          f"sort {t_sort:7.3f} ms, the same rows: {same}")
-    out = {"sort64_ms": t64, "sort32_ms": t32, "layout_ms": t_bucket,
-           "layout_sort_ms": t_sort, "same_rows": same}
-    if args.dim == 3:
-        out["layout_by_cell_ms"] = ms(layout(build_padded_layout, True))
-        print(f"build_padded_layout (3D, rows by cell, the sort) : "
-              f"{out['layout_by_cell_ms']:7.3f} ms")
+    out = {"sort64_ms": t64, "sort32_ms": t32}
+    for cell_order, key in ((False, "layout"), (True, "layout_by_cell")):
+        got = layout(build_padded_layout, cell_order)()
+        want = layout(build_padded_layout_plain, cell_order)()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        del got, want
+        t_bucket = ms(layout(build_padded_layout, cell_order))
+        t_sort = ms(layout(build_padded_layout_plain, cell_order))
+        print(f"build_padded_layout ({args.dim}D, rows by "
+              f"{'cell' if cell_order else 'tile'}, velocity "
+              f"(N, {args.dim})) : bucket kernel {t_bucket:7.3f} ms"
+              f"{' (on the CPU: the sort)' if dev.type == 'cpu' else ''}, "
+              f"sort {t_sort:7.3f} ms, the same rows: {same}")
+        out.update({f"{key}_ms": t_bucket, f"{key}_sort_ms": t_sort,
+                    f"{key}_same_rows": same})
+    out["same_rows"] = out.pop("layout_same_rows")
     return out
 
 if __name__ == "__main__":

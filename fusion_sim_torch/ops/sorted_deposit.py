@@ -217,17 +217,17 @@ def build_padded_layout(position: torch.Tensor, shape: tuple[int, ...],
     row order, then the fillers; the trailing region holds the invalid rows
     in row order, then the surplus fillers.  The reference's sort promises
     no order inside a tile, so the two agree on ``tile_id``/``valid`` and on
-    each tile segment as a set of rows.  Rows by tile on the card go
-    through the bucket resort of ``ops/tile_bucket.py`` (a hand-written
-    kernel, the same rows bit for bit); CPU tensors and rows by cell take
+    each tile segment as a set of rows.  CUDA tensors go through the bucket
+    resort of ``ops/tile_bucket.py`` (a hand-written kernel; by cell with
+    its cell pass after it; the same rows bit for bit); CPU tensors take
     ``build_padded_layout_plain``.
     """
-    if position.device.type == "cuda" and not cell_order:
+    if position.device.type == "cuda":
         from . import tile_bucket
 
         return tile_bucket.padded_layout(position, shape, tiling, payloads,
                                          valid, reserve, spread,
-                                         derive_valid)
+                                         derive_valid, cell_order)
     return build_padded_layout_plain(
         position, shape, tiling, *payloads, valid=valid, reserve=reserve,
         spread=spread, derive_valid=derive_valid, cell_order=cell_order)
@@ -244,7 +244,8 @@ def build_padded_layout_plain(position: torch.Tensor,
     ``torch.sort`` of the int32 (or int64) key, then one gather and one
     zeroing ``where`` a column.  Each layout built here adds 1 to the
     ``layouts_sorted`` counter of ``utils/profiling`` while a profiler
-    records (the bucket kernel's counter is ``layouts_bucketed``)."""
+    records (the bucket kernel's counters are ``layouts_bucketed`` and
+    ``layouts_by_cell``)."""
     n_tiles = math.prod(tiling.n_tiles(shape))
     p_blk = tiling.block
     n = position.shape[0]

@@ -838,7 +838,8 @@ def test_tile_bucket_layout_matches_sort(cuda, dims, order, repair):
     the stable sort's, every output bit for bit, with the velocity whole or
     as column views, a 1-D payload, with and without ``valid`` and
     ``derive_valid``; ``N`` (200,064 rows) is not a multiple of the chunk.
-    Rows by cell keep the sort."""
+    Rows by cell take the cell pass after it: four launches, the sort's
+    layout by cell bit for bit."""
     from fusion_sim_torch.ops import tile_bucket
     from fusion_sim_torch.ops.sorted_deposit import build_padded_layout_plain
     n = 200_064
@@ -864,10 +865,151 @@ def test_tile_bucket_layout_matches_sort(cuda, dims, order, repair):
     before = tile_bucket.LAUNCHES
     by_cell = build_padded_layout(pos, shape, tiling, vel, valid=valid,
                                   derive_valid=True, cell_order=True)
-    assert tile_bucket.LAUNCHES == before
+    assert tile_bucket.LAUNCHES == before + 4
+    torch.cuda.synchronize()
     _same_layout(by_cell, build_padded_layout_plain(
         pos, shape, tiling, vel, valid=valid, derive_valid=True,
         cell_order=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repair", [False, True])
+@pytest.mark.parametrize("order", ["random", "near"])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_tile_bucket_layout_by_cell_matches_sort(cuda, dims, order, repair):
+    """Rows by cell on the card: the bucket kernel's three launches and the
+    cell pass, the stable sort's layout by cell bit for bit, with the
+    velocity whole or as column views, a 1-D payload, with and without
+    ``valid`` and ``derive_valid``, ``reserve`` and ``spread``."""
+    from fusion_sim_torch.ops import tile_bucket
+    from fusion_sim_torch.ops.sorted_deposit import build_padded_layout_plain
+    n = 200_064
+    shape, tiling, pos, vel, valid, w = _bucket_inputs(dims, order, n,
+                                                       dims + 7, cuda)
+    for payloads in ((vel, w), (*vel.unbind(-1), w)):
+        for valid_in in (None, valid):
+            for derive_valid in (False, True):
+                kw = dict(valid=valid_in, reserve=repair, spread=repair,
+                          derive_valid=derive_valid, cell_order=True)
+                want = build_padded_layout_plain(pos, shape, tiling,
+                                                 *payloads, **kw)
+                before = tile_bucket.LAUNCHES
+                got = build_padded_layout(pos, shape, tiling, *payloads,
+                                          **kw)
+                assert tile_bucket.LAUNCHES == before + 4
+                torch.cuda.synchronize()
+                _same_layout(got, want)
+
+
+def _edge_positions(shape, tile, n, seed, cuda):
+    """``n`` positions that stress the cell pass, the tiles of index 2 on
+    the first axis left empty: coordinates at 0, on cell and tile
+    boundaries, at n - ulp, at n (clamped) and slightly negative
+    (clamped); 300 consecutive rows in one cell (more than a warp); every
+    row of tile (1, 1[, 1]) in one cell; the rest at random."""
+    rng = np.random.default_rng(seed)
+    dims = len(shape)
+    ext = np.array(shape, np.float32)
+    picks = []
+    for a in range(dims):
+        na = np.float32(shape[a])
+        picks.append(np.array([0.0, 1.0, tile[a] - 1, tile[a],
+                               np.nextafter(np.float32(tile[a]),
+                                            np.float32(0)),
+                               np.nextafter(na, np.float32(0)), na,
+                               -1e-7, -0.5, 3 * tile[a], 3 * tile[a] + 0.5],
+                              np.float32))
+    edges = np.stack([rng.choice(p, 4096) for p in picks], -1)
+    rand = (rng.random((2 * n, dims)) * ext).astype(np.float32)
+    pos = np.concatenate([edges, rand])
+    t0 = np.clip(np.floor(pos[:, 0]), 0, shape[0] - 1) // tile[0]
+    tile11 = np.all([np.clip(np.floor(pos[:, a]), 0, shape[a] - 1)
+                     // tile[a] == 1 for a in range(dims)], axis=0)
+    pos = pos[(t0 != 2) & ~tile11]
+    rng.shuffle(pos)
+    crowd = np.full((300, dims), np.float32(tile[0] + 2.25))
+    crowd[:, -1] = 3 * tile[-1] + 0.75          # in tile (1, .., 3)
+    whole = (np.float32(tile[0]) + 2 + 0.9 * rng.random((2000, dims))
+             ).astype(np.float32)                # tile (1, 1[, 1]), one cell
+    pos = pos[:n - 2300]
+    cut = rng.integers(0, pos.shape[0])
+    pos = np.concatenate([pos[:cut], crowd, pos[cut:], whole])
+    assert pos.shape[0] == n
+    return torch.tensor(pos, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [2, 3])
+def test_tile_bucket_layout_by_cell_edges(cuda, dims):
+    """The cell pass on positions at and past the cells' and the grid's
+    edges, a cell holding more rows than a warp, a tile in one cell and
+    empty tiles: the sort's layout by cell bit for bit."""
+    from fusion_sim_torch.ops import tile_bucket
+    from fusion_sim_torch.ops.sorted_deposit import (
+        Tiling3D, build_padded_layout_plain, tile_cell_keys)
+    if dims == 2:
+        shape, tiling = (64, 128), Tiling2D(16, 16, 128, margin=2)
+        tile = (16, 16)
+    else:
+        shape, tiling = (32, 32, 64), Tiling3D((8, 8, 8), 128, margin=2)
+        tile = (8, 8, 8)
+    n = 32_768
+    pos = _edge_positions(shape, tile, n, dims, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(dims)
+    vel = torch.randn((n, 3), generator=gen, device=cuda)
+    valid = torch.rand((n,), generator=gen, device=cuda) < 0.9
+    for valid_in in (None, valid):
+        for repair in (False, True):
+            kw = dict(valid=valid_in, reserve=repair, spread=repair,
+                      derive_valid=True, cell_order=True)
+            before = tile_bucket.LAUNCHES
+            got = build_padded_layout(pos, shape, tiling, vel, **kw)
+            assert tile_bucket.LAUNCHES == before + 4
+            torch.cuda.synchronize()
+            _same_layout(got, build_padded_layout_plain(pos, shape, tiling,
+                                                        vel, **kw))
+    tid, real = got[0], got[-2]
+    nts = tiling.n_tiles(shape)
+    per_tile = math.prod(nts[1:])
+    assert int(((tid[real] // per_tile) == 2).sum()) == 0, "tiles not empty"
+    keys = tile_cell_keys(got[1], shape, tiling)[real]
+    assert int(torch.unique(keys, return_counts=True)[1].max()) > 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,n,skew", [((64, 64), 131_072, False),
+                                         ((256, 256), 65_536, False),
+                                         ((256, 256), 65_536, True),
+                                         ((64, 64), 131_072, True)])
+def test_tile_bucket_layout_by_cell_1024_cells(cuda, grid, n, skew):
+    """2D tiles of 32 x 32 = 1,024 cells: four tiles of ~32,768 rows (more
+    than one CTA's shared memory holds: each staged across a cluster of
+    CTAs), 64 of ~1,024 (each staged in one CTA), and, with a fifth of the
+    rows moved into the first tile, that tile beyond its stage (each row
+    written to its place) beside staged ones; the state of a layout after
+    a drift; the sort's layout by cell bit for bit."""
+    from fusion_sim_torch.ops import tile_bucket
+    from fusion_sim_torch.ops.sorted_deposit import build_padded_layout_plain
+    tiling = Tiling2D(32, 32, 1024, margin=6)
+    gen = torch.Generator(device=cuda).manual_seed(n + skew)
+    ext = torch.tensor(grid, dtype=torch.float32, device=cuda)
+    pos = torch.rand((n, 2), generator=gen, device=cuda) * ext
+    if skew:
+        pos[: n // 5] = pos[: n // 5] % 32.0     # into tile 0
+    vel = torch.randn((n, 3), generator=gen, device=cuda)
+    _, pos, vel, _ = build_padded_layout(pos, grid, tiling, vel,
+                                         cell_order=True)
+    pos = torch.remainder(pos[:n] + 0.5 * vel[:n, :2], ext)
+    vel = vel[:n]
+    for repair in (False, True):
+        kw = dict(reserve=repair, spread=repair, derive_valid=True,
+                  cell_order=True)
+        before = tile_bucket.LAUNCHES
+        got = build_padded_layout(pos, grid, tiling, vel, **kw)
+        assert tile_bucket.LAUNCHES == before + 4
+        torch.cuda.synchronize()
+        _same_layout(got, build_padded_layout_plain(pos, grid, tiling, vel,
+                                                    **kw))
 
 
 @pytest.mark.cuda
@@ -892,9 +1034,11 @@ def test_tile_bucket_layout_many_tiles(cuda):
 
 @pytest.mark.cuda
 def test_tile_bucket_layout_counts_under_a_profiler(cuda, tmp_path):
-    """Each layout built through the kernel adds one to
-    ``layouts_bucketed`` while a profiler records; rows by cell add
-    nothing to it, and one to ``layouts_sorted`` (the stable sort)."""
+    """Each layout by tile built through the kernel adds one to
+    ``layouts_bucketed`` while a profiler records; rows by cell, built
+    through the kernel and its cell pass, add nothing to it and one to
+    ``layouts_by_cell``; the stable sort (``layouts_sorted``) is not
+    reached."""
     import json
 
     from fusion_sim_torch.utils import profiling
@@ -908,7 +1052,8 @@ def test_tile_bucket_layout_counts_under_a_profiler(cuda, tmp_path):
     assert profiling.counters()["layouts_bucketed"] == 2
     counts = json.loads((tmp_path / "counters.json").read_text())
     assert counts["layouts_bucketed"] == 2
-    assert counts["layouts_sorted"] == 1
+    assert counts["layouts_by_cell"] == 1
+    assert "layouts_sorted" not in counts
 
 
 @pytest.mark.cuda
@@ -933,6 +1078,10 @@ def test_tile_bucket_layout_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError, match="16 words"):
         build_padded_layout(pos, shape, tiling,
                             *[pos.new_zeros((1024, 3))] * 5)
+    with pytest.raises(ValueError, match="cells a tile"):
+        build_padded_layout(pos * 4, (256, 256),
+                            Tiling2D(128, 128, 128, margin=2),
+                            cell_order=True)
 
 
 @pytest.mark.cuda

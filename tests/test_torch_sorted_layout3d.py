@@ -163,9 +163,10 @@ def test_tiling3d_validation():
 @pytest.mark.parametrize("cell_order", [False, True])
 @pytest.mark.parametrize("reserve", [False, True])
 def test_layout_whole_payload_on_the_plain_path(reserve, cell_order):
-    """CPU tensors (and rows by cell anywhere) take the plain sort and
-    never reach the bucket kernel; an (N, 3) payload comes back as the same
-    rows as its three columns."""
+    """CPU tensors take the plain sort, by tile and by cell, and never
+    reach the bucket kernel (rows by cell on the card no longer take the
+    sort: the kernel and its cell pass build them); an (N, 3) payload
+    comes back as the same rows as its three columns."""
     from fusion_sim_torch.ops import tile_bucket
     pos, vel, valid = _particles(seed=5)
     pos[valid == 0] = 1e4     # invalid rows keep whatever they carry
