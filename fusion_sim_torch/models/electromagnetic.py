@@ -400,13 +400,14 @@ class SortedElectromagneticPIC(SortedShell):
     them to its window.  With 'fused' in 3D and repair off, kernel B6
     writes the fillers as zeros itself, and the finish zeroes nothing.
 
-    While a ``torch.profiler`` records, ``step`` opens the spans of
-    ``utils/profiling.span`` (``fusion_sim.step`` around the call; leaf
-    phases ``fields``, ``kernel``, ``patch``, ``repair``, ``solve``,
-    ``finish``, ``resort`` and ``drain_check``, which hold every operation
-    a step launches, with ``host_read`` inside ``patch`` around each read
-    of a spill count) and counts ``rows_patched``, the rows of a step that
-    took the exact patch.
+    ``step`` opens the spans of ``utils/profiling.span``, a profiler's
+    annotations while one records, else the host clock's phases
+    (``fusion_sim.step`` around the call; leaf phases ``fields``,
+    ``kernel``, ``patch``, ``repair``, ``solve``, ``finish``, ``resort`` and
+    ``drain_check``, which hold every operation a step launches, with
+    ``host_read`` inside ``patch`` around each read of a spill count), and
+    while a profiler records counts ``rows_patched``, the rows of a step
+    that took the exact patch.
     """
 
     # Without repair a whole window resorts at its end at any

@@ -252,13 +252,13 @@ class SortedElectrostaticPIC(SortedShell):
     window, carrying their own exact values, up to ``eager_capacity`` rows
     a step; ``repair_free_slots`` sizes each tile's stack.
 
-    While a ``torch.profiler`` records, ``step`` opens the spans of
-    ``utils/profiling.span`` (``fusion_sim.step`` around the call; leaf
-    phases ``solve``, ``kernel``, ``patch``, ``repair``, ``resort`` and
-    ``drain_check``, which hold every operation a step launches, with
-    ``host_read`` inside ``patch`` around the step's read of the spill
-    count) and counts ``rows_patched``, the rows of a step that took the
-    exact patch.
+    ``step`` opens the spans of ``utils/profiling.span``, a profiler's
+    annotations while one records, else the host clock's phases
+    (``fusion_sim.step`` around the call; leaf phases ``solve``, ``kernel``,
+    ``patch``, ``repair``, ``resort`` and ``drain_check``, which hold every
+    operation a step launches, with ``host_read`` inside ``patch`` around
+    the step's read of the spill count), and while a profiler records counts
+    ``rows_patched``, the rows of a step that took the exact patch.
     """
 
     def __init__(self, config: ESConfig, position, velocity,

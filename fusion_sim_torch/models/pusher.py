@@ -553,13 +553,14 @@ class CylindricalParticlePusher:
         """Advance n full steps (each two half-steps, empic.js:1436-1469),
         drawing the uniforms from the shell's generator.
 
-        While a ``torch.profiler`` records, the call is the
-        ``fusion_sim.step`` span (``utils/profiling.span``).  On the sorted
-        path its leaf phases ``kernel`` (the uniforms, the coefficient
-        table and the substep itself), ``patch``, ``respawn``, ``finish``
-        and ``resort`` (models/pusher_sorted.py) hold every operation it
-        launches, with ``host_read`` around each count read on the host,
-        and it counts ``rows_patched`` and ``rows_respawned``."""
+        The call is the ``fusion_sim.step`` span (``utils/profiling.span``:
+        a profiler's annotation while one records, else the host clock's
+        phase). On the sorted path its leaf phases ``kernel`` (the uniforms,
+        the coefficient table and the substep itself), ``patch``,
+        ``respawn``, ``finish`` and ``resort`` (models/pusher_sorted.py)
+        hold every operation it launches, with ``host_read`` around each
+        count read on the host, and it counts ``rows_patched`` and
+        ``rows_respawned``."""
         with span("step"):
             if self._fast_scenario is not None:
                 self._step_fast(n)
@@ -574,9 +575,8 @@ class CylindricalParticlePusher:
 
     def density(self) -> torch.Tensor:
         """Deposit moments, update the EMA, render the frame
-        (empic.js:1471-1526).  Returns (nr, nz, 3) float RGB.  While a
-        profiler records, the call is the leaf span
-        ``fusion_sim.density``."""
+        (empic.js:1471-1526).  Returns (nr, nz, 3) float RGB.  The call is
+        the leaf span ``fusion_sim.density``."""
         with span("density"):
             if self._sorted_state is not None:
                 self._sorted_state, frame = self._sorted_density(

@@ -28,13 +28,13 @@ package's random numbers row for row.  Where the reference runs
 substep reads its spill count(s) and its respawn count once.  Counters
 (``spill``, ``dropped``, ``dropped_over``) are Python ints.
 
-While a ``torch.profiler`` records, a step's operations fall in the leaf
-spans of ``utils/profiling.span``: ``kernel`` (the coefficient table and
-the substep's sampling and push), ``patch`` (the spill masks, counts,
-compaction and exact re-push), ``respawn`` (the sink values and
-``ops/push.sink_respawn``), ``finish`` (repair and the fillers'
-``where``), with ``host_read`` around each count read; the counter
-``rows_patched`` adds min(spill, capacity) a sample, and
+A step's operations fall in the leaf spans of ``utils/profiling.span`` (a
+profiler's annotations while one records, else the host clock's phases):
+``kernel`` (the coefficient table and the substep's sampling and push),
+``patch`` (the spill masks, counts, compaction and exact re-push),
+``respawn`` (the sink values and ``ops/push.sink_respawn``), ``finish``
+(repair and the fillers' ``where``), with ``host_read`` around each count
+read; the counter ``rows_patched`` adds min(spill, capacity) a sample, and
 ``sink_respawn`` counts ``rows_respawned``.
 """
 

@@ -10,11 +10,13 @@ by cell), at
 ``port_bench/tests/tiny.py``'s sizes with a one-cell sort margin and a
 hot plasma, so that rows spill from the first steps.  Each is stepped
 under ``torch.profiler`` (CPU activity) beside an untraced twin built
-from the same inputs."""
+from the same inputs, whose calls the host clock behind ``span`` times
+(``host_times``)."""
 
 import contextlib
 import copy
 import json
+import tracemalloc
 
 import pytest
 import torch
@@ -82,23 +84,55 @@ def recording(request):
                            or sim._need_resort)
                 sim.step(1)
         counts = profiling.counters()
+        profiling._reset_clock()
+        seen = []
         for _ in range(calls):
             twin.step(1)
+            seen.append(profiling.host_times())
+        with profiling.span("step"):    # closes the last call's record
+            pass
+        seen.append(profiling.host_times())
         yield dict(name=request.param, sim=sim, twin=twin, s0=s0,
                    calls=calls, repair=repair, due=sum(due),
-                   events=list(prof.events()), counts=counts)
+                   events=list(prof.events()), counts=counts,
+                   records=[_less(b, a) for a, b in zip(seen, seen[1:])])
     finally:
         torch.set_num_threads(saved)
 
 
+def _less(a, b):
+    """Host times ``a`` less ``b``: the records ``a`` holds beyond ``b``."""
+    return {"calls": a["calls"] - b["calls"],
+            "wall_ns": a["wall_ns"] - b["wall_ns"],
+            **{k: {p: a[k][p] - b[k][p] for p in a[k]}
+               for k in ("self_ns", "count")}}
+
+
 def test_span_off_is_the_shared_noop():
+    """With no profiler every name, known or not, gets the one shared host
+    clock (nothing is made per call, and timing spans keeps no memory),
+    and counts add nothing."""
     sim = _build("es_resort")
     before = profiling.counters()
     a, b = profiling.span("step"), profiling.span("patch")
-    assert a is b and isinstance(a, contextlib.nullcontext)
+    assert a is b is profiling._CLOCK
+    assert profiling.span("no such phase") is a
     profiling.count("rows_patched", 5)
     sim.step(2)
     assert profiling.counters() == before
+    tracemalloc.start()
+    try:
+        for _ in range(1000):           # lists and ints warm
+            with profiling.span("kernel"):
+                pass
+        held = tracemalloc.get_traced_memory()[0]
+        for _ in range(10000):
+            with profiling.span("kernel"):
+                with profiling.span("host_read"):
+                    pass
+        assert tracemalloc.get_traced_memory()[0] - held < 1024
+    finally:
+        tracemalloc.stop()
 
 
 def test_every_op_in_a_step_has_one_leaf_phase(recording):
@@ -131,6 +165,171 @@ def test_span_counts(recording):
     else:
         assert n["fusion_sim.resort"] == 2 == recording["due"]
     assert set(n) <= LEAVES | {"fusion_sim.step", "fusion_sim.host_read"}
+
+
+def _span_counts_by_call(events):
+    """The profiler's ``fusion_sim.*`` spans by the ``step`` span that holds
+    their start, in call order: [{phase: count}]."""
+    steps = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "fusion_sim.step")
+    out = [{} for _ in steps]
+    for e in events:
+        if not e.name.startswith("fusion_sim.") or e.name == "fusion_sim.step":
+            continue
+        i = next(i for i, (a, b) in enumerate(steps)
+                 if a <= e.time_range.start <= b)
+        name = e.name[len("fusion_sim."):]
+        out[i][name] = out[i].get(name, 0) + 1
+    return out
+
+
+def test_clock_counts_each_span_as_the_profiler(recording):
+    """Call by call, the host clock's span counts in the untraced twin
+    equal the profiler's spans in the traced model."""
+    records = recording["records"]
+    assert [r["calls"] for r in records] == [1] * recording["calls"]
+    for rec, seen in zip(records, _span_counts_by_call(recording["events"])):
+        assert rec["count"]["step"] == 1
+        assert {k: n for k, n in rec["count"].items()
+                if n and k != "step"} == seen
+
+
+def test_clock_self_times_lie_within_the_wall(recording):
+    for rec in recording["records"]:
+        assert all(t >= 0 for t in rec["self_ns"].values()), rec
+        assert rec["self_ns"]["step"] > 0
+        assert sum(rec["self_ns"].values()) <= rec["wall_ns"], rec
+
+
+@pytest.fixture
+def planted(monkeypatch):
+    """A new host clock on a planted time source, ``now[0]`` ns; a new
+    clock on the real one afterwards."""
+    now = [0]
+    monkeypatch.setattr(profiling, "_now", lambda: now[0])
+    profiling._reset_clock()
+    yield now
+    monkeypatch.undo()
+    profiling._reset_clock()
+
+
+def test_host_read_is_not_in_its_parents_self_time(planted):
+    """On a planted clock: a host read inside a patch inside a step, and
+    the next step's entry."""
+    now = planted
+
+    def at(t, ctx, enter):
+        now[0] = t
+        ctx.__enter__() if enter else ctx.__exit__(None, None, None)
+
+    step = profiling.span("step")
+    at(0, step, True)
+    patch = profiling.span("patch")
+    at(10, patch, True)
+    read = profiling.span("host_read")
+    at(20, read, True)
+    at(50, read, False)
+    at(60, patch, False)
+    at(70, step, False)
+    at(100, profiling.span("step"), True)
+    at(100, step, False)
+    times = profiling.host_times()
+    assert times["calls"] == 1 and times["wall_ns"] == 100
+    assert {k: t for k, t in times["self_ns"].items() if t} \
+        == {"step": 20, "patch": 20, "host_read": 30}
+    assert {k: n for k, n in times["count"].items() if n} \
+        == {"step": 1, "patch": 1, "host_read": 1}
+
+
+def _planted_records(now, n):
+    """``n`` step calls on the planted clock, record i: wall i + 7 ns, a
+    kernel span of i + 1 ns, step self time 3 ns; the last closed by a
+    further, empty step call.  Returns the walls."""
+    walls = []
+    for i in range(n + 1):
+        step = profiling.span("step")
+        step.__enter__()
+        if i == n:
+            step.__exit__(None, None, None)
+            break
+        now[0] += 1
+        kernel = profiling.span("kernel")
+        kernel.__enter__()
+        now[0] += i + 1
+        kernel.__exit__(None, None, None)
+        now[0] += 2
+        step.__exit__(None, None, None)
+        now[0] += 3
+        walls.append(i + 7)
+    return walls
+
+
+@pytest.mark.parametrize("n", [100, 600])
+def test_ring_keeps_the_last_512_records(planted, n):
+    """The ring's sums over the last min(512, n) records equal a plain sum
+    of those records, before and after evictions; a recording freezes
+    them, and calls after it leave them."""
+    walls = _planted_records(planted, n)
+    assert profiling.RING == 512
+    last = walls[-512:]
+    want = {"calls": len(last), "wall_ns": sum(last),
+            "self_ns": {**{p: 0 for p in profiling.PHASES},
+                        "step": 3 * len(last),
+                        "kernel": sum(w - 6 for w in last)},
+            "count": {**{p: 0 for p in profiling.PHASES},
+                      "step": len(last), "kernel": len(last)}}
+    assert profiling.host_times() == want
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.span("step")
+    for _ in range(3):
+        with profiling.span("step"):
+            with profiling.span("kernel"):
+                pass
+    assert profiling.host_times() == want
+
+
+def test_host_times_freeze_when_a_recording_starts():
+    """A tiny model: the calls before a recording give the ring's records
+    (the last call's record is still open, and dropped); the recording's
+    calls and those after it leave ``host_times()`` as it was."""
+    sim = _build("es_resort")
+    profiling._reset_clock()
+    assert profiling.host_times()["calls"] == 0
+    for _ in range(5):
+        sim.step(1)
+    live = profiling.host_times()
+    assert live["calls"] == 4 and live["count"]["step"] == 4
+    with profile(activities=[ProfilerActivity.CPU]):
+        sim.step(2)
+        assert profiling.host_times() == live
+    for _ in range(3):
+        sim.step(1)
+    assert profiling.host_times() == live
+
+
+@pytest.mark.parametrize("name", sorted(MODELS) + ["pusher"])
+def test_clock_adds_no_host_read(name, monkeypatch):
+    """Twins from one build, one timed by the host clock and one with the
+    clock replaced by a no-op context: the same scalar reads, the same
+    state, and the counters as they were."""
+    if name == "pusher":
+        timed, plain = _pusher(), _pusher()
+        run, state = (lambda sim: _frames(sim, 3)), "_sorted_state"
+    else:
+        timed, plain = _build(name), _build(name)
+        run, state = (lambda sim: sim.step(3)), "state"
+    before = profiling.counters()
+    profiling._reset_clock()
+    a = _scalar_reads(lambda: run(timed))
+    with profiling.span("step"):        # closes the last call's record
+        pass
+    assert profiling.host_times()["count"]["host_read"] > 0
+    monkeypatch.setattr(profiling, "_CLOCK", contextlib.nullcontext())
+    assert _scalar_reads(lambda: run(plain)) == a > 0
+    assert profiling.counters() == before
+    for key, x in getattr(timed, state)._asdict().items():
+        y = getattr(getattr(plain, state), key)
+        assert (torch.equal(x, y) if torch.is_tensor(x) else x == y), key
 
 
 def test_rows_patched_is_the_state_delta(recording):
