@@ -36,7 +36,10 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                of twenty, sentinel blocks, rows by tile, by cell and
                shuffled inside each tile, heavy spill, the largest windows
                and the smallest refused one; B3: 1, 3, 6, 12 and 13 channels in
-               both modes and the edges of its periodic wrap); X1
+               both modes and the edges of its periodic wrap; Y2 and T2 on
+               512^2, odd, ragged and sub-halo grids, word and float copies,
+               refusals, and one fused 2D step through them against the
+               plain grid phase, bit for bit); X1
                (contraction_depth) at m = 96, p = 256, G = 4, S = 8 for
                both orders, both precisions and every K, and at the edges
                of its load ring (G 1 and 5, K 8, 40 and 136, m 20 and 36,
@@ -75,10 +78,13 @@ Phases 4-11 build their sims through the port's bench and example builders
                the EM rung's size (10,002,432 particles, 512^2, cell 0.5,
                dt 0.1, tile 32, margin 6, resort every 12, spill capacity
                16384; the shell orders each tile's rows by cell): one warm
-               window, two timed windows; B4 launches, drops, validity,
-               finiteness and Gauss's law checked, B4
-               timed against its plain version and its bound on the path's
-               own inputs, one profiled window;
+               window, two timed windows; B4, Y2 and T2 launches (one a
+               step each), drops, validity, finiteness and Gauss's law
+               checked, B4 timed against its plain version and its bound on
+               the path's own inputs, T2 (the 2D node table) and Y2 (the 2D
+               Yee update) held bit for bit against their plain versions on
+               the path's live fields (all zero fails) and timed beside
+               them and their byte bounds, one profiled window;
 6b. EM pallas — the same configuration at 1,048,576 particles with
                ``gather_backend='pallas'``: B3 launches (cic, 6 channels)
                and drops checked, steps/s printed, B3 held bit for bit
@@ -771,20 +777,23 @@ def phase3_card_cases() -> None:
     blocks, rows by tile, by cell and shuffled inside each tile, heavy
     spill, the largest windows and the smallest refused one; B3 with 1, 3,
     6, 12 and 13 channels in both modes and at the edges of its periodic
-    wrap; the bucket resort against the sort, bit for bit."""
+    wrap; the bucket resort against the sort, bit for bit; Y2 and T2
+    against their plain versions and one fused 2D step through them, bit
+    for bit."""
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
          "-p", "no:cacheprovider", "tests/test_torch_kernels_cuda.py", "-k",
-         "em2d or es3d or gather2d or 3d_kernels_reject or tile_bucket"],
+         "em2d or es3d or gather2d or 3d_kernels_reject or tile_bucket or "
+         "yee2d or node_table2d"],
         cwd=HERE, capture_output=True, text=True, timeout=600)
     lines = out.stdout.strip().splitlines()
     if out.returncode != 0 or not lines or "passed" not in lines[-1] \
             or "skipped" in lines[-1] or "failed" in lines[-1]:
-        raise AssertionError("the B4/B5/B3/resort card cases failed:\n"
+        raise AssertionError("the B4/B5/B3/resort/Y2/T2 card cases failed:\n"
                              + "\n".join(lines[-40:]) + out.stderr[-2000:])
-    log("3 kernels", f"B4, B5, B3 and resort card cases (tests/test_torch_"
-                     f"kernels_cuda.py): {lines[-1]} "
+    log("3 kernels", f"B4, B5, B3, resort, Y2 and T2 card cases (tests/"
+                     f"test_torch_kernels_cuda.py): {lines[-1]} "
                      f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1114,7 +1123,8 @@ def check_em_state(torch, st, n):
 
 def phase6_em_main(torch, em, fe, smi, kernel_modules):
     from fusion_sim_torch.examples import bench_em_fused as bem
-    from fusion_sim_torch.ops import fdtd
+    from fusion_sim_torch.ops import node_table2d as nt
+    from fusion_sim_torch.ops import yee2d as y2
 
     n, resort = bem.N, bem.RESORT
     t0 = time.perf_counter()
@@ -1133,12 +1143,15 @@ def phase6_em_main(torch, em, fe, smi, kernel_modules):
                 f"{time.perf_counter() - t0:.3f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(kernel_modules)
+    zero_counts((*kernel_modules, y2, nt))
     rates = run_windows(torch, sim, 2, resort)
     launches = fe.LAUNCHES
     steps = 2 * resort
-    if launches != steps:
-        raise AssertionError(f"B4 launches {launches} != steps {steps}")
+    if launches != steps or y2.LAUNCHES != steps or nt.LAUNCHES != steps:
+        raise AssertionError(f"B4 launches {launches}, Y2 launches "
+                             f"{y2.LAUNCHES}, T2 launches {nt.LAUNCHES} != "
+                             f"steps {steps}")
+    y_launches, t_launches = y2.LAUNCHES, nt.LAUNCHES
     resorted = resort_launches(kernel_modules, 2, "6 EM",
                                per=4)   # rows by cell
     st = sim.state
@@ -1158,8 +1171,14 @@ def phase6_em_main(torch, em, fe, smi, kernel_modules):
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # kernel vs plain and bound, on the main path's own inputs
-    table = fdtd.center_fields(st.e, st.b, fdtd.E_OFFSETS_2D,
-                               fdtd.B_OFFSETS_2D)
+    if not (bool(st.e.any()) and bool(st.b.any())):
+        raise AssertionError("the path's E or B is all zero")
+    table = nt.node_table_2d(st.e, st.b)
+    plain_table = nt.node_table_2d_plain(st.e, st.b)
+    torch.cuda.synchronize()
+    if not torch.equal(table, plain_table):
+        raise AssertionError("T2 differs from the plain node table")
+    del plain_table
     args = em_substep_args(cfg, tiling, table, st)
     err, report = compare_fused(
         torch, "B4", fe.fused_em2d_substep(*args),
@@ -1172,14 +1191,50 @@ def phase6_em_main(torch, em, fe, smi, kernel_modules):
                 f"{report}; kernel {k_ms:.4f} ms "
                 f"({b_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s effective), "
                 f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    c_ms = median_ms(torch, lambda: fdtd.center_fields(
-        st.e, st.b, fdtd.E_OFFSETS_2D, fdtd.B_OFFSETS_2D))
-    j = torch.zeros_like(st.e)
-    y_ms = median_ms(torch, lambda: em.yee_update(cfg, st.e, st.b, j))
-    log("6 EM", f"center_fields {c_ms:.4f} ms, Yee update {y_ms:.4f} ms "
-                f"(512^2)")
+    c_ms = median_ms(torch, lambda: nt.node_table_2d_plain(st.e, st.b))
+    t_ms = median_ms(torch, lambda: nt.node_table_2d(st.e, st.b))
+    tb_ms, tb_by, tb_bytes = node_table_bound_ms(cfg.grid_shape)
+    log("6 EM", f"T2 node_table2d (512^2): the table equals the plain "
+                f"version's; kernel {t_ms:.4f} ms "
+                f"({tb_bytes / (t_ms * 1e-3) / 1e9:.1f} GB/s effective, "
+                f"{100 * tb_ms / t_ms:.1f}% of its bound), plain "
+                f"(center_fields) {c_ms:.4f} ms, bound {tb_ms:.4f} ms "
+                f"({tb_by})")
+    # Y2 on the main path's fields and the J of B4's deposit on them
+    j = fe.fused_em2d_substep(*args)[2]
+    yee = (st.e, st.b, j, cfg.dt, cfg.cell_size, cfg.c, cfg.eps0)
+    got, plain = y2.yee_update_2d(*yee), y2.yee_update_2d_plain(*yee)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+        raise AssertionError("Y2 differs from the plain Yee update")
+    del got, plain
+    y_ms = median_ms(torch, lambda: y2.yee_update_2d(*yee))
+    yp_ms = median_ms(torch, lambda: y2.yee_update_2d_plain(*yee))
+    yb_ms, yb_by, yb_bytes = yee_bound_ms(cfg.grid_shape)
+    log("6 EM", f"Y2 yee2d (512^2): E and B equal the plain version's; "
+                f"kernel {y_ms:.4f} ms "
+                f"({yb_bytes / (y_ms * 1e-3) / 1e9:.1f} GB/s effective, "
+                f"{100 * yb_ms / y_ms:.1f}% of its bound), plain "
+                f"{yp_ms:.4f} ms, bound {yb_ms:.4f} ms ({yb_by})")
+    del args, table, j, yee
     profile_window(torch, "6 EM", f"{resort} steps + resort",
                    lambda: sim.step(resort))
+    y2_entry = {
+        "name": "Y2:yee2d", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/yee2d.cu",
+        "replaces": "none: the reference's yee_update is XLA",
+        "launches": y_launches, "max_abs_err": 0.0, "ms": y_ms,
+        "plain_ms": yp_ms, "bound_ms": yb_ms, "bound_by": yb_by,
+        "library_ms": None,
+    }
+    t2_entry = {
+        "name": "T2:node_table2d", "route": "cuda",
+        "source": "fusion_sim_torch/csrc/node_table2d.cu",
+        "replaces": "none: the reference's center_fields is XLA",
+        "launches": t_launches, "max_abs_err": 0.0, "ms": t_ms,
+        "plain_ms": c_ms, "bound_ms": tb_ms, "bound_by": tb_by,
+        "library_ms": None,
+    }
     return {
         "name": "B4:em2d_substep", "route": "cuda",
         "source": "fusion_sim_torch/csrc/em2d_substep.cu",
@@ -1187,7 +1242,7 @@ def phase6_em_main(torch, em, fe, smi, kernel_modules):
         "launches": launches, "max_abs_err": err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }, rate, resorted
+    }, y2_entry, t2_entry, rate, resorted
 
 
 def phase6b_em_pallas(torch, sg, smi, kernel_modules, n: int = 1 << 20):
@@ -1298,18 +1353,22 @@ def em3d_bound_ms(n_rows: int, n_valid: int, shape, block: int):
     return (*bound(bytes_moved, 700 * n_valid), bytes_moved)
 
 
-def node_table3d_bound_ms(shape):
-    """Least time for one 3D node table: E and B read once and the table
-    written once (48 B a node), against 24 f32 operations a node."""
+def node_table_bound_ms(shape):
+    """Least time for one node table: E and B read once and the table
+    written once (48 B a node), against 24 f32 operations a node in 3D, 14
+    in 2D."""
     cells = math.prod(shape)
-    return (*bound(cells * 48, cells * 24), cells * 48)
+    ops = 24 if len(shape) == 3 else 14
+    return (*bound(cells * 48, cells * ops), cells * 48)
 
 
-def yee3d_bound_ms(shape):
-    """Least time for one 3D Yee update: E, B and J read once and E and B
-    written once (60 B a cell), against 54 f32 operations a cell."""
+def yee_bound_ms(shape):
+    """Least time for one Yee update: E, B and J read once and E and B
+    written once (60 B a cell), against 54 f32 operations a cell in 3D, 57
+    in 2D."""
     cells = math.prod(shape)
-    return (*bound(cells * 5 * 12, cells * 54), cells * 5 * 12)
+    ops = 54 if len(shape) == 3 else 57
+    return (*bound(cells * 5 * 12, cells * ops), cells * 5 * 12)
 
 
 def phase3_3d(torch, es, em, f3, fe3, Tiling3D, build_padded_layout, dev,
@@ -1646,7 +1705,7 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
                    f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     c_ms = median_ms(torch, lambda: nt.node_table_3d_plain(st.e, st.b))
     t_ms = median_ms(torch, lambda: nt.node_table_3d(st.e, st.b))
-    tb_ms, tb_by, tb_bytes = node_table3d_bound_ms(cfg.grid_shape)
+    tb_ms, tb_by, tb_bytes = node_table_bound_ms(cfg.grid_shape)
     log("8 EM 3D", f"T1 node_table3d (128^3): the table equals the plain "
                    f"version's; kernel {t_ms:.4f} ms "
                    f"({tb_bytes / (t_ms * 1e-3) / 1e9:.1f} GB/s effective, "
@@ -1663,7 +1722,7 @@ def phase8_em3d_main(torch, em, fe3, smi, kernel_modules):
     del got, plain
     y_ms = median_ms(torch, lambda: y3.yee_update_3d(*yee))
     yp_ms = median_ms(torch, lambda: y3.yee_update_3d_plain(*yee))
-    yb_ms, yb_by, yb_bytes = yee3d_bound_ms(cfg.grid_shape)
+    yb_ms, yb_by, yb_bytes = yee_bound_ms(cfg.grid_shape)
     log("8 EM 3D", f"Y1 yee3d (128^3): E and B "
                    f"equal the plain version's; kernel {y_ms:.4f} ms "
                    f"({yb_bytes / (y_ms * 1e-3) / 1e9:.1f} GB/s effective, "
@@ -3829,8 +3888,8 @@ def main() -> None:
     log("5b pallas", f"done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 6. the EM main path at full size, 6b. its pallas route -----------------
-    b4, em_resort_rate, em2d_resorted = phase6_em_main(torch, em, fe, smi,
-                                                       kernel_modules)
+    b4, y2, t2, em_resort_rate, em2d_resorted = phase6_em_main(
+        torch, em, fe, smi, kernel_modules)
     torch.cuda.empty_cache()
     log("6 EM", f"done at {time.perf_counter() - t_start:.1f} s")
     b3_em = phase6b_em_pallas(torch, sg, smi, kernel_modules)
@@ -3897,9 +3956,9 @@ def main() -> None:
         entry["launches"] = forms.get(entry["name"].rsplit("=", 1)[1], 0)
         if not entry["launches"]:
             raise AssertionError(f"no launch of {entry['name']}")
-    print(json.dumps({"kernels": [b1, *b1_ablations, b2, *b3, b4, b3_em, b5,
-                                  b6, y1, t1, *resorts, x1, *sharded,
-                                  *dry]}),
+    print(json.dumps({"kernels": [b1, *b1_ablations, b2, *b3, b4, y2, t2,
+                                  b3_em, b5, b6, y1, t1, *resorts, x1,
+                                  *sharded, *dry]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .._device import device_const, resolve_device
-from ..ops import fdtd, node_table3d, yee3d
+from ..ops import fdtd, node_table2d, node_table3d, yee2d, yee3d
 from ..ops.esirkepov import esirkepov_deposit_2d, esirkepov_deposit_3d
 from ..ops.fused_em import fused_em2d_substep
 from ..ops.fused_em3d import fused_em3d_substep
@@ -138,10 +138,11 @@ def _coord_velocity(config: EMConfig, velocity: torch.Tensor) -> torch.Tensor:
 
 def yee_update(config: EMConfig, e, b, j):
     """``(e_new, b_new)``: B half step, E full step with J, B half step.
-    3D goes through ``yee3d.yee_update_3d`` (one kernel launch on the card,
-    the rolls and differences on the CPU); 2D through those rolls."""
+    3D goes through ``yee3d.yee_update_3d``, 2D through
+    ``yee2d.yee_update_2d`` (one kernel launch on the card each, the rolls
+    and differences on the CPU)."""
     update = (yee3d.yee_update_3d if config.n_dim == 3
-              else yee3d.yee_update_3d_plain)
+              else yee2d.yee_update_2d)
     return update(e, b, j, config.dt, config.cell_size, config.c,
                   config.eps0)
 
@@ -158,11 +159,11 @@ def check_step_config(config: EMConfig) -> None:
 
 def node_table(config: EMConfig, e, b):
     """The node-centered (*grid, 6) E|B table.  3D goes through
-    ``node_table3d.node_table_3d`` (one kernel launch on the card,
-    ``center_fields`` on the CPU); 2D through ``center_fields``' rolls."""
+    ``node_table3d.node_table_3d``, 2D through ``node_table2d.node_table_2d``
+    (one kernel launch on the card each, ``center_fields`` on the CPU)."""
     if config.n_dim == 3:
         return node_table3d.node_table_3d(e, b)
-    return fdtd.center_fields(e, b, *_offsets(config))
+    return node_table2d.node_table_2d(e, b)
 
 
 def field_table(config: EMConfig, e, b):

@@ -26,8 +26,7 @@ LAUNCHES = 0  # launches of the yee3d kernel (CUDA tensors only)
 def yee_update_3d_plain(e, b, j, dt: float, cell_size, c: float = 1.0,
                         eps0: float = 1.0):
     """``(e_new, b_new)``: ``fdtd.advance_b_half``, ``advance_e_full``,
-    ``advance_b_half``; on a grid of any rank (the EM model's 2D update is
-    this too)."""
+    ``advance_b_half``; on a grid of any rank."""
     b_half = fdtd.advance_b_half(b, e, dt, cell_size)
     e_new = fdtd.advance_e_full(e, b_half, j, dt, cell_size, c=c, eps0=eps0)
     return e_new, fdtd.advance_b_half(b_half, e_new, dt, cell_size)

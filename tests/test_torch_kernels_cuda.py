@@ -1257,3 +1257,188 @@ def test_em3d_fused_step_on_the_node_table_kernel_is_the_plain_step(
             assert torch.equal(_bits(x), _bits(y)), key
         else:
             assert x == y, key
+
+
+# 512^2 (the 2D3V cell's grid), odd, ragged against Y2's and T2's 8 x 64
+# tiles, and axes shorter than the halo
+GRIDS_2D = [(512, 512), (5, 7), (9, 13), (20, 130), (1, 2), (2, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_light,eps0", [(1.0, 1.0), (2.0, 0.7)])
+@pytest.mark.parametrize("cell_size", [(0.5, 0.5), (0.5, 0.3)])
+@pytest.mark.parametrize("shape", GRIDS_2D)
+def test_yee2d_kernel_matches_plain(cuda, shape, cell_size, c_light, eps0):
+    """Built with -fmad=false and the plain version's operation order and
+    scalars: E and B bit for bit, over the periodic wrap, ragged tiles and
+    axes shorter than the halo."""
+    from fusion_sim_torch.ops import yee2d
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    e, b, j = (torch.randn((*shape, 3), generator=gen, device=cuda)
+               for _ in range(3))
+    before = yee2d.LAUNCHES
+    got = yee2d.yee_update_2d(e, b, j, 0.1, cell_size, c_light, eps0)
+    assert yee2d.LAUNCHES == before + 1
+    plain = yee2d.yee_update_2d_plain(e, b, j, 0.1, cell_size, c_light, eps0)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[0]), _bits(plain[0])), "E"
+    assert torch.equal(_bits(got[1]), _bits(plain[1])), "B"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((12, 68), 0), ((12, 68), 1),
+                                          ((12, 66), 0)])
+def test_yee2d_kernel_word_copies_and_float_copies(cuda, shape, offset):
+    """Y a multiple of 4 with a ragged last tile (68 = 64 + 4), on grids
+    16-byte aligned (the tile's cells as 16-byte words, in and out) and on
+    contiguous views one float past it, and Y even but not a multiple of 4
+    (every float alone): bit for bit."""
+    from fusion_sim_torch.ops import yee2d
+
+    n = math.prod(shape) * 3
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    e, b, j = (torch.randn(n + offset, generator=gen, device=cuda)[offset:]
+               .view(*shape, 3) for _ in range(3))
+    assert e.is_contiguous() and (e.data_ptr() % 16 != 0) == bool(offset)
+    args = (0.1, (0.5, 0.3), 2.0, 0.7)
+    got = yee2d.yee_update_2d(e, b, j, *args)
+    plain = yee2d.yee_update_2d_plain(e, b, j, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[0]), _bits(plain[0])), "E"
+    assert torch.equal(_bits(got[1]), _bits(plain[1])), "B"
+
+
+@pytest.mark.cuda
+def test_yee2d_kernel_rejects_bad_inputs(cuda):
+    from fusion_sim_torch.ops import yee2d
+
+    e, b, j = (torch.zeros((8, 8, 3), device=cuda) for _ in range(3))
+    cell = (0.5, 0.5)
+    before = yee2d.LAUNCHES
+    with pytest.raises(ValueError, match=r"\(X, Y, 3\)"):
+        cube = torch.zeros((8, 8, 8, 3), device=cuda)
+        yee2d.yee_update_2d(cube, cube, cube, 0.1, cell)
+    with pytest.raises(TypeError, match="float32"):
+        yee2d.yee_update_2d(e.double(), b.double(), j.double(), 0.1, cell)
+    with pytest.raises(ValueError, match="contiguous"):
+        yee2d.yee_update_2d(e.transpose(0, 1), b, j, 0.1, cell)
+    with pytest.raises(ValueError, match="shape"):
+        yee2d.yee_update_2d(e, b, j[:, :4].contiguous(), 0.1, cell)
+    with pytest.raises(ValueError, match="2 entries"):
+        yee2d.yee_update_2d(e, b, j, 0.1, (0.5, 0.5, 0.5))
+    with pytest.raises(ValueError, match="is on"):
+        yee2d.yee_update_2d(e, b, j.cpu(), 0.1, cell)
+    assert yee2d.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRIDS_2D)
+def test_node_table2d_kernel_matches_plain(cuda, shape):
+    """Built with -fmad=false and center_fields' averages axis by axis:
+    the table bit for bit, over the periodic wrap, ragged tiles and axes
+    shorter than the halo."""
+    from fusion_sim_torch.ops import node_table2d
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    e, b = (torch.randn((*shape, 3), generator=gen, device=cuda)
+            for _ in range(2))
+    before = node_table2d.LAUNCHES
+    got = node_table2d.node_table_2d(e, b)
+    assert node_table2d.LAUNCHES == before + 1
+    assert got.shape == (*shape, 6) and got.is_contiguous()
+    plain = node_table2d.node_table_2d_plain(e, b)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((12, 68), 0), ((12, 68), 1),
+                                          ((12, 66), 0)])
+def test_node_table2d_kernel_word_copies_and_float_copies(cuda, shape,
+                                                          offset):
+    """Y a multiple of 4 with a ragged last tile (68 = 64 + 4), on grids
+    16-byte aligned (the tile's cells as 16-byte words, in and out) and on
+    contiguous views one float past it, and Y even but not a multiple of 4
+    (every float alone): bit for bit."""
+    from fusion_sim_torch.ops import node_table2d
+
+    n = math.prod(shape) * 3
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    e, b = (torch.randn(n + offset, generator=gen, device=cuda)[offset:]
+            .view(*shape, 3) for _ in range(2))
+    assert e.is_contiguous() and (e.data_ptr() % 16 != 0) == bool(offset)
+    got = node_table2d.node_table_2d(e, b)
+    plain = node_table2d.node_table_2d_plain(e, b)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(plain))
+
+
+@pytest.mark.cuda
+def test_node_table2d_kernel_rejects_bad_inputs(cuda):
+    from fusion_sim_torch.ops import node_table2d
+
+    e, b = (torch.zeros((8, 8, 3), device=cuda) for _ in range(2))
+    before = node_table2d.LAUNCHES
+    with pytest.raises(ValueError, match=r"\(X, Y, 3\)"):
+        cube = torch.zeros((8, 8, 8, 3), device=cuda)
+        node_table2d.node_table_2d(cube, cube)
+    with pytest.raises(TypeError, match="float32"):
+        node_table2d.node_table_2d(e.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        node_table2d.node_table_2d(e.transpose(0, 1), b)
+    with pytest.raises(ValueError, match="shape"):
+        node_table2d.node_table_2d(e, b[:, :4].contiguous())
+    with pytest.raises(ValueError, match="is on"):
+        node_table2d.node_table_2d(e, b.cpu())
+    assert node_table2d.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_em2d_fused_step_on_the_grid_kernels_is_the_plain_step(
+        cuda, monkeypatch):
+    """One step of the fused 2D shell through Y2 and T2 and through the
+    plain grid phase: every tensor of the state bit for bit, on live
+    fields.  One particle a 4^2 block of cells, slow, so no grid cell takes
+    two deposits and J has no atomic summation order."""
+    from fusion_sim_torch.models import electromagnetic as em
+    from fusion_sim_torch.ops import node_table2d, yee2d
+
+    cells = 64
+    g = np.arange(0, cells, 4) + 1.5
+    lattice = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    rng = np.random.default_rng(9)
+    pos = (lattice + rng.uniform(-0.3, 0.3, lattice.shape)).astype(np.float32)
+    vel = (0.05 * rng.standard_normal((len(lattice), 3))).astype(np.float32)
+    e0, b0 = ((0.01 * rng.standard_normal((cells, cells, 3))).astype(
+        np.float32) for _ in range(2))
+    cfg = em.EMConfig(grid_shape=(cells, cells), cell_size=(0.5, 0.5),
+                      dt=0.1, charge=-0.01, mass=0.01,
+                      field_gather="centered")
+
+    def step():
+        sim = em.SortedElectromagneticPIC(
+            cfg, pos, vel, e=e0, b=b0,
+            tiling=Tiling2D(tile_r=16, tile_z=16, block=128, margin=2),
+            resort_every=12, gather_backend="fused", device=cuda)
+        before = yee2d.LAUNCHES, node_table2d.LAUNCHES
+        sim.step(1)
+        torch.cuda.synchronize()
+        return sim.state, (yee2d.LAUNCHES - before[0],
+                           node_table2d.LAUNCHES - before[1])
+
+    fast, launches = step()
+    assert launches == (1, 1)
+    monkeypatch.setattr(yee2d, "yee_update_2d", yee2d.yee_update_2d_plain)
+    monkeypatch.setattr(node_table2d, "node_table_2d",
+                        node_table2d.node_table_2d_plain)
+    plain, launches = step()
+    assert launches == (0, 0)
+    assert not torch.equal(fast.e.cpu(), torch.from_numpy(e0)), "E moved"
+    assert bool(fast.b.abs().gt(0).any()), "live B"
+    for key, x in fast._asdict().items():
+        y = getattr(plain, key)
+        if torch.is_tensor(x):
+            assert torch.equal(_bits(x), _bits(y)), key
+        else:
+            assert x == y, key
