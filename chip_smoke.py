@@ -3227,8 +3227,8 @@ def sharded_pieces(torch, shd, sim, single, substep, args) -> str:
     ok = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
     pieces = (
         ("frame shift", lambda: shd._to_local(cfg, st.position, ring.x_lo)),
-        ("solve + halos", lambda: shd._solve_e_pad(
-            cfg, ring, shd._neutralize(cfg, ring, st.rho), cfg.halo_w)),
+        ("solve + halos", lambda: shd._solve_e_pad(cfg, ring, st.rho,
+                                                   cfg.halo_w)),
         ("kernel", lambda: substep(*args)),
         ("spill mask + count", lambda: patch_rows(
             (~out[3] | (st.tile_id >= shd._n_tiles(cfg))) & st.alive,

@@ -39,6 +39,18 @@ step the particles may move less than ``disp_bound`` cells (half a slab
 for the migration masks, APRON_W - 1 for the apron); ``max_disp`` tracks
 the largest move seen, and ``debug_checks`` raises when it breaks.
 
+The shells open the program's phase spans (``utils/profiling.span``):
+``fusion_sim.step`` around each public ``step`` and ``.resort`` around
+each resort; the ES steps ``.solve`` (the neutralization, the Poisson
+solve with the pencil's two transposes, the gradient) and ``.halo`` (the
+apron fold, the phi and E halos); the fused step besides ``.kernel`` (the
+kernel and its arguments), ``.patch`` (the spill mask and count, the
+exact re-push and deposit, the spill account) and ``.migrate`` (the wrap
+back to global units, the migration masks, pack, exchange and seating).
+While a profiler records, ``rows_patched`` counts the rows patched and
+``rows_migrated`` the rows that left the slab over either face, counted
+on the device (a ring of one wraps them onto its own opposite face).
+
 Every entry point runs on the CUDA card unless given ``device="cpu"``.
 """
 
@@ -67,6 +79,7 @@ from ..ops.sorted_deposit import (build_padded_layout, deposit_sorted_2d,
                                   gather_sorted_3d, tile_ids, tile_ids_3d)
 from ..parallel import halo, migration
 from ..parallel.mesh import all_gather_rows, axis_group
+from ..utils.profiling import count, span
 from ..utils.stepping import make_multi_step, make_window_step, pow2_chunk
 from .electrostatic import ESConfig
 
@@ -272,25 +285,31 @@ class _Ring:
 
 def _solve_e_pad(config: ShardedESConfig, ring: _Ring, rho_local, width):
     """E on the rank's window of ``width`` halo cells a side, from its
-    neutralized rho slab: the gathered dense-DFT route or the pencil FFT
-    with halo'd differences."""
+    rho slab, neutralized here: the gathered dense-DFT route or the pencil
+    FFT with halo'd differences (the solve and the halos in spans of their
+    own)."""
     base = config.base
-    if _use_gathered_dft(base):
-        phi_full = _phi_full_gathered(rho_local, base, ring.group)
-        return _e_pad_from_full_phi(phi_full, ring.x_lo, width, config.slab,
-                                    base)
-    phi_local = poisson_fft_sharded(rho_local, base.grid_shape,
-                                    base.cell_size, ring.group,
-                                    eps0=base.eps0)
+    with span("solve"):
+        rho_local = _neutralize(config, ring, rho_local)
+        if _use_gathered_dft(base):
+            phi_full = _phi_full_gathered(rho_local, base, ring.group)
+            return _e_pad_from_full_phi(phi_full, ring.x_lo, width,
+                                        config.slab, base)
+        phi_local = poisson_fft_sharded(rho_local, base.grid_shape,
+                                        base.cell_size, ring.group,
+                                        eps0=base.eps0)
     # x by the halo'd central difference, the whole axes by rolls
-    phi_pad = halo.with_halo(phi_local, ring.group, 1)
-    grads = [(phi_pad[2:] - phi_pad[:-2]) / (2.0 * base.cell_size[0])]
-    for a in range(1, base.n_dim):
-        up = torch.roll(phi_local, -1, dims=a)
-        dn = torch.roll(phi_local, 1, dims=a)
-        grads.append((up - dn) / (2.0 * base.cell_size[a]))
-    e_local = torch.stack([-g for g in grads], dim=-1)
-    return halo.with_halo(e_local, ring.group, width)
+    with span("halo"):
+        phi_pad = halo.with_halo(phi_local, ring.group, 1)
+    with span("solve"):
+        grads = [(phi_pad[2:] - phi_pad[:-2]) / (2.0 * base.cell_size[0])]
+        for a in range(1, base.n_dim):
+            up = torch.roll(phi_local, -1, dims=a)
+            dn = torch.roll(phi_local, 1, dims=a)
+            grads.append((up - dn) / (2.0 * base.cell_size[a]))
+        e_local = torch.stack([-g for g in grads], dim=-1)
+    with span("halo"):
+        return halo.with_halo(e_local, ring.group, width)
 
 
 def _neutralize(config: ShardedESConfig, ring: _Ring, rho_local):
@@ -372,8 +391,8 @@ def make_sharded_es_step_fn(config: ShardedESConfig, mesh,
         w = torch.where(alive, w0, 0.0).to(torch.float32)
         rho_pad = cic_deposit_packed(shift_x(position, APRON_W - ring.x_lo),
                                      w, pad_shape)
-        rho_local = _neutralize(config, ring, halo.accumulate_apron(
-            rho_pad, ring.group, APRON_W))
+        with span("halo"):
+            rho_local = halo.accumulate_apron(rho_pad, ring.group, APRON_W)
 
         # ---- distributed solve, gather, push ----------------------------
         e_pad = _solve_e_pad(config, ring, rho_local, HALO_W)
@@ -408,62 +427,68 @@ def make_sharded_es_step_fn(config: ShardedESConfig, mesh,
 
 def _wrap_and_migrate(config, ring, state, lp1, velocity, alive, overflow,
                       idx, ok, d_mask, n_tiles_ps):
-    """The common tail of the sorted steps: back to global units, then
-    repair + stacked migration, or plain migration."""
-    base = config.base
-    H, tiling = config.halo_w, config.tiling
-    gx = lp1[:, 0] - H
-    if ring.x_lo:
-        gx = gx + float(ring.x_lo)
-    gx = torch.remainder(gx, float(base.grid_shape[0]))
-    # the other axes wrap on their own periods, in one pass over the rows
-    # (its x column is then replaced)
-    x1 = torch.remainder(lp1, device_const(base.grid_shape, lp1.device))
-    x1[:, 0] = gx
-    ly1_w = x1[:, 1:]
-    # one shard has no crossers; eager repair reads the masks even there
-    go_left = go_right = None
-    if config.n_shards > 1 or config.repair_eager:
-        go_left, go_right = _migrate_masks(config, ring, gx, alive)
-    extra = {}
-    if config.repair:
-        tid_fn = tile_ids if base.n_dim == 2 else tile_ids_3d
+    """The common tail of the sorted steps, in the ``migrate`` span: back
+    to global units, then repair + stacked migration, or plain migration.
+    While a profiler records, ``rows_migrated`` counts the alive rows that
+    left the slab over either x face."""
+    with span("migrate"):
+        base = config.base
+        H, tiling = config.halo_w, config.tiling
+        gx = lp1[:, 0] - H
+        count("rows_migrated",
+              lambda: (alive & ((gx < 0) | (gx >= config.slab))).sum())
+        if ring.x_lo:
+            gx = gx + float(ring.x_lo)
+        gx = torch.remainder(gx, float(base.grid_shape[0]))
+        # the other axes wrap on their own periods, in one pass over the rows
+        # (its x column is then replaced)
+        x1 = torch.remainder(lp1, device_const(base.grid_shape, lp1.device))
+        x1[:, 0] = gx
+        ly1_w = x1[:, 1:]
+        # one shard has no crossers; eager repair reads the masks even there
+        go_left = go_right = None
+        if config.n_shards > 1 or config.repair_eager:
+            go_left, go_right = _migrate_masks(config, ring, gx, alive)
+        extra = {}
+        if config.repair:
+            tid_fn = tile_ids if base.n_dim == 2 else tile_ids_3d
 
-        def arrival_tiles(arrs):
-            return tid_fn(_to_local(config, arrs[0], ring.x_lo),
-                          config.pseudo_shape, tiling)
+            def arrival_tiles(arrs):
+                return tid_fn(_to_local(config, arrs[0], ring.x_lo),
+                              config.pseudo_shape, tiling)
 
-        (x1, velocity, alive, fidx, fcnt, sidx, scnt, unpl,
-         overflow) = sharded_repair_migrate(
-            x1, velocity, alive, state.tile_id, idx, ok, lp1[:, 0], ly1_w,
-            go_left, go_right, state.free_idx, state.free_cnt,
-            state.spare_idx, state.spare_cnt, state.unplaced, overflow,
-            arrival_tiles, group=ring.group, n_shards=config.n_shards,
-            migration_buffer=config.migration_buffer,
-            pseudo_shape=config.pseudo_shape, tiling=tiling,
-            n_tiles=n_tiles_ps, slab=config.slab, halo_w=H,
-            in_win=~d_mask, eager_keep=config.repair_eager,
-            eager_cap=config.eager_capacity or config.spill_capacity)
-        extra = dict(free_idx=fidx, free_cnt=fcnt, spare_idx=sidx,
-                     spare_cnt=scnt, unplaced=unpl)
-    elif config.n_shards > 1:
-        res = migration.migrate_ring((x1, velocity), alive, go_left,
-                                     go_right, ring.group,
-                                     config.migration_buffer)
-        (x1, velocity), alive = res.arrays, res.alive
-        overflow = overflow + res.overflow
-    x1 = torch.where(alive[:, None], x1, 0.0)
-    if config.repair or config.n_shards > 1:
-        # rows moved: the steps zeroed the dead rows' velocities before
-        velocity = torch.where(alive[:, None], velocity, 0.0)
-    return x1, velocity, alive, overflow, extra
+            (x1, velocity, alive, fidx, fcnt, sidx, scnt, unpl,
+             overflow) = sharded_repair_migrate(
+                x1, velocity, alive, state.tile_id, idx, ok, lp1[:, 0], ly1_w,
+                go_left, go_right, state.free_idx, state.free_cnt,
+                state.spare_idx, state.spare_cnt, state.unplaced, overflow,
+                arrival_tiles, group=ring.group, n_shards=config.n_shards,
+                migration_buffer=config.migration_buffer,
+                pseudo_shape=config.pseudo_shape, tiling=tiling,
+                n_tiles=n_tiles_ps, slab=config.slab, halo_w=H,
+                in_win=~d_mask, eager_keep=config.repair_eager,
+                eager_cap=config.eager_capacity or config.spill_capacity)
+            extra = dict(free_idx=fidx, free_cnt=fcnt, spare_idx=sidx,
+                         spare_cnt=scnt, unplaced=unpl)
+        elif config.n_shards > 1:
+            res = migration.migrate_ring((x1, velocity), alive, go_left,
+                                         go_right, ring.group,
+                                         config.migration_buffer)
+            (x1, velocity), alive = res.arrays, res.alive
+            overflow = overflow + res.overflow
+        x1 = torch.where(alive[:, None], x1, 0.0)
+        if config.repair or config.n_shards > 1:
+            # rows moved: the steps zeroed the dead rows' velocities before
+            velocity = torch.where(alive[:, None], velocity, 0.0)
+        return x1, velocity, alive, overflow, extra
 
 
 def make_sharded_sorted_es_step_fn(config: ShardedESConfig, mesh,
-                                   axis: str = "space"):
+                                   axis: str = "space", on_spill=None):
     """The sorted composition in plain PyTorch (backend 'xla'), 2D or 3D:
     per-shard windowed deposit and gather on the halo-padded pseudo-grid,
-    the exact patch of out-of-window rows, the distributed solve."""
+    the exact patch of out-of-window rows, the distributed solve;
+    ``on_spill`` as the fused composition's."""
     ring = _Ring(config, mesh, axis)
     base = config.base
     tiling, ndim = config.tiling, base.n_dim
@@ -492,8 +517,8 @@ def make_sharded_sorted_es_step_fn(config: ShardedESConfig, mesh,
         if n_spill:
             rho_pad = rho_pad + cic_deposit_packed(
                 torch.remainder(lp0[idx], pseudo_f), w[idx], pseudo_shape)
-        rho_local = _neutralize(config, ring, halo.accumulate_apron(
-            rho_pad, ring.group, H))
+        with span("halo"):
+            rho_local = halo.accumulate_apron(rho_pad, ring.group, H)
 
         # ---- distributed solve, sorted gather (patched) -----------------
         e_pad = _solve_e_pad(config, ring, rho_local, H)
@@ -516,7 +541,8 @@ def make_sharded_sorted_es_step_fn(config: ShardedESConfig, mesh,
             ok, d_mask, n_tiles_ps)
         return state._replace(position=x1, velocity=velocity, alive=alive,
                               overflow=overflow, max_disp=max_disp,
-                              **_spill_counts(config, state, n_spill),
+                              **_spill_counts(config, state, n_spill,
+                                              on_spill),
                               **extra)
 
     return step
@@ -537,10 +563,14 @@ def _fused_inputs(config: ShardedESConfig, ring: _Ring, state):
     rho on the halo-padded window, the rows in the pseudo-grid frame,
     weights 0 on dead rows and trailing blocks), and the trailing-block
     mask."""
+    return _kernel_args(config, ring, state, _solve_e_pad(
+        config, ring, state.rho, config.halo_w))
+
+
+def _kernel_args(config: ShardedESConfig, ring: _Ring, state, e_pad):
+    """``_fused_inputs`` from E on the halo-padded window."""
     base = config.base
     bad_block = state.tile_id >= _n_tiles(config)
-    e_pad = _solve_e_pad(config, ring, _neutralize(config, ring, state.rho),
-                         config.halo_w)
     w0 = base.charge / base.cell_volume
     w = torch.where(state.alive & ~bad_block, w0, 0.0).to(torch.float32)
     args = (e_pad, _to_local(config, state.position, ring.x_lo),
@@ -550,23 +580,30 @@ def _fused_inputs(config: ShardedESConfig, ring: _Ring, state):
     return args, bad_block
 
 
-def _spill_counts(config: ShardedESConfig, state, n_spill: int) -> dict:
+def _spill_counts(config: ShardedESConfig, state, n_spill: int,
+                  on_spill=None) -> dict:
     """The step's spill added to the cumulative counts: every patched row,
     and the rows past ``spill_capacity`` (not patched: their deposits are
-    lost)."""
+    lost); counts ``rows_patched``, and hands the step's rows dropped to
+    ``on_spill`` on the host, where given."""
     dropped = max(n_spill - config.spill_capacity, 0)
+    count("rows_patched", n_spill - dropped)
+    if on_spill is not None:
+        on_spill(dropped)
     return dict(spill=state.spill + n_spill,
                 spill_dropped=state.spill_dropped + dropped)
 
 
 def make_sharded_sorted_es_pallas_step_fn(config: ShardedESConfig, mesh,
-                                          axis: str = "space"):
+                                          axis: str = "space",
+                                          on_spill=None):
     """The fused composition (backend 'pallas'): solve E from the CARRIED
     per-shard rho (distributed), then one kernel a shard does gather +
     kick + drift + deposit on the pseudo-grid (B1 in 2D, B5 in 3D), the
     out-of-window rows are re-pushed exactly, the apron fold returns
     boundary deposits to their owners, and migration hands crossers
-    over."""
+    over.  ``on_spill(dropped)`` hears each step's rows past
+    ``spill_capacity`` on the host."""
     ring = _Ring(config, mesh, axis)
     dt = config.base.dt
     qm_dt = float(config.base.charge / config.base.mass * dt)
@@ -581,38 +618,44 @@ def make_sharded_sorted_es_pallas_step_fn(config: ShardedESConfig, mesh,
         pseudo_f = device_const(pseudo_shape, dev)
         # E from the carried rho, and the kernel's inputs on the
         # pseudo-grid; one fused kernel on them
-        args, bad_block = _fused_inputs(config, ring, state)
-        e_pad, lp0, vel0 = args[:3]
-        lp1, velocity, rho_pad, in_win = substep(
-            *args, precision=_precision(config))
+        e_pad = _solve_e_pad(config, ring, state.rho, config.halo_w)
+        with span("kernel"):
+            args, bad_block = _kernel_args(config, ring, state, e_pad)
+            lp0, vel0 = args[1:3]
+            lp1, velocity, rho_pad, in_win = substep(
+                *args, precision=_precision(config))
 
         # ---- exact patch of out-of-window and trailing-block rows -------
-        d_mask = (~in_win | bad_block) & alive
-        n_spill, idx = patch_rows(d_mask, (config.spill_capacity,))
-        if n_spill:        # (no row spilled: nothing to re-push)
-            lp0_k = torch.remainder(lp0[idx], pseudo_f)
-            vel_k = vel0[idx] + qm_dt * cic_gather_packed(e_pad, lp0_k,
-                                                          pseudo_shape)
-            lp1_k = lp0_k + dt * vel_k / _dxv(config, dev)
-            rho_pad = rho_pad + cic_deposit_packed(
-                torch.remainder(lp1_k, pseudo_f),
-                torch.full(idx.shape, w0, dtype=torch.float32, device=dev),
-                pseudo_shape)
-            lp1[idx] = lp1_k
-            velocity[idx] = vel_k
-        velocity = torch.where(alive[:, None], velocity, 0.0)
-        rho_new = halo.accumulate_apron(rho_pad, ring.group, config.halo_w)
+        with span("patch"):
+            d_mask = (~in_win | bad_block) & alive
+            n_spill, idx = patch_rows(d_mask, (config.spill_capacity,))
+            if n_spill:        # (no row spilled: nothing to re-push)
+                lp0_k = torch.remainder(lp0[idx], pseudo_f)
+                vel_k = vel0[idx] + qm_dt * cic_gather_packed(
+                    e_pad, lp0_k, pseudo_shape)
+                lp1_k = lp0_k + dt * vel_k / _dxv(config, dev)
+                rho_pad = rho_pad + cic_deposit_packed(
+                    torch.remainder(lp1_k, pseudo_f),
+                    torch.full(idx.shape, w0, dtype=torch.float32,
+                               device=dev),
+                    pseudo_shape)
+                lp1[idx] = lp1_k
+                velocity[idx] = vel_k
+            velocity = torch.where(alive[:, None], velocity, 0.0)
+            max_disp = _max_disp(config, velocity, state.max_disp)
+            ok = torch.ones(idx.shape, dtype=torch.bool, device=dev)
+            spilled = _spill_counts(config, state, n_spill, on_spill)
+        with span("halo"):
+            rho_new = halo.accumulate_apron(rho_pad, ring.group,
+                                            config.halo_w)
 
         # ---- wrap + migrate ---------------------------------------------
-        max_disp = _max_disp(config, velocity, state.max_disp)
-        ok = torch.ones(idx.shape, dtype=torch.bool, device=dev)
         x1, velocity, alive, overflow, extra = _wrap_and_migrate(
             config, ring, state, lp1, velocity, alive, state.overflow, idx,
             ok, d_mask, _n_tiles(config))
         return state._replace(position=x1, velocity=velocity, alive=alive,
                               overflow=overflow, max_disp=max_disp, rho=rho_new,
-                              **_spill_counts(config, state, n_spill),
-                              **extra)
+                              **spilled, **extra)
 
     return step
 
@@ -748,62 +791,75 @@ class _ShardedShell:
         return {k: v.cpu().numpy() for k, v in self.state._asdict().items()
                 if v is not None}
 
+    def _resort_spanned(self, state):
+        """``_resort`` (with repair, and the free stacks rebuilt) in the
+        ``resort`` span."""
+        with span("resort"):
+            state = self._resort(state)
+            if getattr(self.config, "repair", False):
+                state = self._free_init(state)
+            return state
+
     def step(self, n: int = 1) -> None:
         """Advance ``n`` steps with the reference's cadence: whole resort
         windows (steps, then the resort) where they fit, power-of-two
         chunks otherwise; with repair, one step at a time and the
-        drain check at the end (one all_reduce)."""
-        cadence = self.config.resort_every if self.sorted else 10 ** 9
-        repair = getattr(self.config, "repair", False)
-        done = 0
-        while done < n:
-            if self.sorted and (self._since_sort >= cadence
-                                or getattr(self, "_need_resort", False)):
-                self.state = self._resort(self.state)
-                if repair:
-                    self.state = self._free_init(self.state)
-                    self._need_resort = False
-                self._since_sort = 0
-            since = self._since_sort if self.sorted else 0
-            if (self.sorted and not repair and since == 0
-                    and n - done >= cadence and cadence <= 128):
-                key = ("w", cadence)
-                if key not in self._multi_cache:
-                    self._multi_cache[key] = make_window_step(
-                        self._step, self._resort, cadence)
-                self.state = self._multi_cache[key](self.state)
-                done += cadence
-                continue
-            k = pow2_chunk(min(n - done, min(cadence - since, 32)))
-            if k <= 1 or repair:
-                self.state = self._step(self.state)
-                k = 1
-            else:
-                if k not in self._multi_cache:
-                    self._multi_cache[k] = make_multi_step(self._step, k)
-                self.state = self._multi_cache[k](self.state)
-            if self.sorted:
-                self._since_sort += k
-            done += k
-        if repair:
-            totals = self._all_reduce(torch.stack(
-                [self.state.unplaced.sum(), self.state.overflow.sum()]))
-            summed = types.SimpleNamespace(unplaced=totals[0],
-                                           overflow=totals[1])
-            self._need_resort, self._unplaced_seen, self._overflow_seen = \
-                drain_check(summed, self._unplaced_seen,
-                            self._overflow_seen, self.config.spill_capacity,
-                            self.config.capacity, n)
-        if self.config.debug_checks:
-            inv = self.check_invariants()
-            if not inv["disp_bound_ok"]:
-                raise RuntimeError(
-                    f"migration invariant violated: max per-step "
-                    f"displacement {inv['max_disp_cells']:.3f} cells >= "
-                    f"bound {self.config.disp_bound:.3f} "
-                    f"({self._debug_note}) — particle "
-                    f"ownership/apron folding is no longer guaranteed; "
-                    f"reduce dt or use wider slabs")
+        drain check at the end (one all_reduce).  The call is the
+        ``step`` span."""
+        with span("step"):
+            cadence = self.config.resort_every if self.sorted else 10 ** 9
+            repair = getattr(self.config, "repair", False)
+            done = 0
+            while done < n:
+                if self.sorted and (self._since_sort >= cadence
+                                    or getattr(self, "_need_resort", False)):
+                    self.state = self._resort_spanned(self.state)
+                    if repair:
+                        self._need_resort = False
+                    self._since_sort = 0
+                since = self._since_sort if self.sorted else 0
+                if (self.sorted and not repair and since == 0
+                        and n - done >= cadence and cadence <= 128):
+                    key = ("w", cadence)
+                    if key not in self._multi_cache:
+                        self._multi_cache[key] = make_window_step(
+                            self._step, self._resort_spanned, cadence)
+                    self.state = self._multi_cache[key](self.state)
+                    done += cadence
+                    continue
+                k = pow2_chunk(min(n - done, min(cadence - since, 32)))
+                if k <= 1 or repair:
+                    self.state = self._step(self.state)
+                    k = 1
+                else:
+                    if k not in self._multi_cache:
+                        self._multi_cache[k] = make_multi_step(self._step, k)
+                    self.state = self._multi_cache[k](self.state)
+                if self.sorted:
+                    self._since_sort += k
+                done += k
+            if repair:
+                with span("drain_check"):
+                    st = self.state
+                    totals = self._all_reduce(torch.stack(
+                        [st.unplaced.sum(), st.overflow.sum()]))
+                    summed = types.SimpleNamespace(unplaced=totals[0],
+                                                   overflow=totals[1])
+                    self._need_resort, self._unplaced_seen, \
+                        self._overflow_seen = drain_check(
+                            summed, self._unplaced_seen, self._overflow_seen,
+                            self.config.spill_capacity, self.config.capacity,
+                            n)
+            if self.config.debug_checks:
+                inv = self.check_invariants()
+                if not inv["disp_bound_ok"]:
+                    raise RuntimeError(
+                        f"migration invariant violated: max per-step "
+                        f"displacement {inv['max_disp_cells']:.3f} cells >= "
+                        f"bound {self.config.disp_bound:.3f} "
+                        f"({self._debug_note}) — particle "
+                        f"ownership/apron folding is no longer guaranteed; "
+                        f"reduce dt or use wider slabs")
 
     def gather_particles(self) -> tuple[np.ndarray, np.ndarray]:
         """Every live particle of the mesh, on every rank, in shard
@@ -841,7 +897,13 @@ class ShardedElectrostaticPIC(_ShardedShell):
     or the ring's process group; its size must be ``config.n_shards``.
     Every rank passes the same global ``position``/``velocity`` and keeps
     the particles of its own slab.  Runs on the CUDA card unless given
-    ``device="cpu"`` (NCCL on the card, gloo on the CPU)."""
+    ``device="cpu"`` (NCCL on the card, gloo on the CPU).
+
+    ``rows_dropped`` is the rank's ``spill_dropped`` kept on the host (the
+    rows past ``spill_capacity`` since the build), readable without a
+    device read."""
+
+    rows_dropped = 0
 
     def __init__(self, config: ShardedESConfig, mesh, position, velocity,
                  axis: str = "space", device=None):
@@ -893,6 +955,9 @@ class ShardedElectrostaticPIC(_ShardedShell):
                 self.state = self.state._replace(
                     rho=self._seed_rho(self.state))
 
+    def _note_dropped(self, dropped: int) -> None:
+        self.rows_dropped += dropped
+
     def _make_steps(self, mesh, axis):
         config = self.config
         if not self.sorted:
@@ -903,12 +968,12 @@ class ShardedElectrostaticPIC(_ShardedShell):
             self._free_init = make_sharded_es_free_init_fn(config, mesh, axis)
             self._unplaced_seen = self._overflow_seen = 0
             self._need_resort = False
+        make = (make_sharded_sorted_es_pallas_step_fn
+                if config.backend == "pallas"
+                else make_sharded_sorted_es_step_fn)
         if config.backend == "pallas":
             self._seed_rho = make_sharded_es_seed_rho_fn(config, mesh, axis)
-            self._step = make_sharded_sorted_es_pallas_step_fn(config, mesh,
-                                                               axis)
-        else:
-            self._step = make_sharded_sorted_es_step_fn(config, mesh, axis)
+        self._step = make(config, mesh, axis, on_spill=self._note_dropped)
         self._since_sort = 0
 
     @classmethod

@@ -11,11 +11,13 @@
   ``record_function("fusion_sim.<name>")`` user annotation, which shares
   the clock of the profiler's device trace, so device time and idle gaps
   can be charged to the phase that launched them; a count adds to a plain
-  int.  With no profiler recording, ``span`` returns the one shared host
-  clock after a single ``_profiler_enabled()`` check and ``count`` does
-  nothing.  The first ``span`` or ``count`` of a new recording (one that
-  follows a call which saw no profiler) clears the counters, so
-  ``counters()`` holds the last recording's counts.
+  int, or to a count on the device that ``counters()`` reads, so that
+  counting adds no host read to a step.  With no profiler recording,
+  ``span`` returns the one shared host clock after a single
+  ``_profiler_enabled()`` check and ``count`` does nothing.  The first
+  ``span`` or ``count`` of a new recording (one that follows a call which
+  saw no profiler) clears the counters, so ``counters()`` holds the last
+  recording's counts.
 * ``host_times`` — what the host clock kept: each span's self time (its
   duration less its child spans') and calls by phase, summed over the
   last ``RING`` public calls, each from the entry of one
@@ -23,8 +25,9 @@
   its ``step`` falls in the step's record).  The clock keeps nothing
   while a profiler records, and ``host_times()`` holds the ring as it
   stood when the last recording began, so a traced run reads the host
-  time of the untraced calls before it.  Shells that open no
-  ``fusion_sim.step`` span (the sharded ones) close no record.
+  time of the untraced calls before it.  Spans of names outside
+  ``PHASES`` (the sharded shells' ``halo`` and ``migrate``) count under
+  ``other``.
 """
 
 from __future__ import annotations
@@ -176,15 +179,23 @@ def span(name: str):
     return _CLOCK
 
 
-def count(name: str, n: int) -> None:
-    """Add ``n`` to the counter ``name`` while a profiler records."""
+def count(name: str, n) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records.  ``n`` is
+    an int, or a function of no arguments that gives one or a count on
+    the device (a 0-d integer tensor): it is called only while a profiler
+    records, and a device count is summed on the device and read by
+    ``counters()``, so that counting adds no host read to a step."""
     if _recording():
-        _counts[name] = _counts.get(name, 0) + int(n)
+        if callable(n):
+            n = n()
+        _counts[name] = _counts.get(name, 0) + (n if torch.is_tensor(n)
+                                                else int(n))
 
 
 def counters() -> dict[str, int]:
-    """The counts of the current (or last) recording."""
-    return dict(_counts)
+    """The counts of the current (or last) recording (a count kept on the
+    device is read here)."""
+    return {k: int(v) for k, v in _counts.items()}
 
 
 def host_times() -> dict:

@@ -1,0 +1,5 @@
+"""``rows_patched_per_step`` in the device-bound cell that patches a share
+of its rows every step (the sharded slab), which moves
+``particle_updates_per_s.device_bound``."""
+
+from .rows_patched_per_step import read  # noqa: F401
